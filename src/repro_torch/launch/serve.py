@@ -12,9 +12,11 @@ analytical board model applied to measured wall time (modelled, not
 measured on the card).  The reference's search/validate/tpu/fleet modes
 are not ported yet.
 
-Usage (from the repository root):
+Usage (from the repository root; `--arch` is llama3.2-1b or olmoe-1b-7b):
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch llama3.2-1b --rounds 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+        --arch olmoe-1b-7b --rounds 8
 """
 
 from __future__ import annotations

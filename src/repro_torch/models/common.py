@@ -1,7 +1,8 @@
 """Shared model components of the port (the parts of `repro.models.common`
-that the llama family reaches): RMSNorm, rotary embeddings, GQA attention,
-the native KV cache, cached decode attention, prefill into the cache, the
-gated MLP, embeddings and the loss.
+that llama3.2-1b and olmoe-1b-7b reach): RMSNorm, rotary embeddings, GQA
+attention with optional qk-norm, the native KV cache, cached decode
+attention, prefill into the cache, the gated MLP, tied or untied
+embeddings and the loss.
 
 Parameters are plain nested dicts of tensors with the reference's key
 names and its `[in, out]` weight layout (``x @ w``).  Dtype policy: params
@@ -108,6 +109,7 @@ class AttnSpec:
     query_scale: Optional[float] = None  # default 1/sqrt(head_dim)
     rope_theta: float = 10000.0
     use_rope: bool = True
+    qk_norm: bool = False                # olmoe
     sliding_window: int = 0              # 0 = full attention
     attn_impl: str = "naive"             # "naive" | "flash"
 
@@ -116,10 +118,14 @@ def attn_init(gen: torch.Generator, spec: AttnSpec, dtype, device
               ) -> Params:
     d, h, kvh, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, \
         spec.head_dim
-    return {"wq": dense_init(gen, d, h * hd, dtype, device),
-            "wk": dense_init(gen, d, kvh * hd, dtype, device),
-            "wv": dense_init(gen, d, kvh * hd, dtype, device),
-            "wo": dense_init(gen, h * hd, d, dtype, device)}
+    p = {"wq": dense_init(gen, d, h * hd, dtype, device),
+         "wk": dense_init(gen, d, kvh * hd, dtype, device),
+         "wv": dense_init(gen, d, kvh * hd, dtype, device),
+         "wo": dense_init(gen, h * hd, d, dtype, device)}
+    if spec.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, device)
+        p["k_norm"] = rmsnorm_init(hd, dtype, device)
+    return p
 
 
 def _project_qkv(params: Params, spec: AttnSpec, x: Tensor,
@@ -130,6 +136,11 @@ def _project_qkv(params: Params, spec: AttnSpec, x: Tensor,
     q = (x @ params["wq"]).reshape(b, s, h, hd)
     k = (x @ params["wk"]).reshape(b, s, kvh, hd)
     v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    if spec.qk_norm:
+        # Per-head RMSNorm over head_dim, after the projections and before
+        # RoPE; [B, S, H, hd] rows go through the RMSNorm kernel.
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
     if spec.use_rope and positions is not None:
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
@@ -262,6 +273,16 @@ def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
         ctx = flash_attention(q, k, v, scale=spec.query_scale, causal=True,
                               window=spec.sliding_window,
                               softcap=spec.logit_softcap, kv_start=kv_start)
+        if pad_mask is not None:
+            # A left-pad query row has no valid key: the kernel writes 0,
+            # the reference (naive and models/flash.py alike) the mean of
+            # the S values.  Attention never reads such a row, but an MoE
+            # FFN routes it and it takes expert capacity, so the port
+            # gives it the reference's value.
+            g = spec.n_heads // spec.n_kv_heads
+            vmean = v.float().mean(dim=1).repeat_interleave(g, dim=1)
+            ctx = torch.where(pad_mask[:, :, None, None], ctx,
+                              vmean[:, None].to(ctx.dtype))
         ctx = ctx.reshape(b, s, -1)
     else:
         mask = causal_mask(s, s, window=spec.sliding_window,
@@ -296,9 +317,11 @@ def embed(params: Params, tokens: Tensor) -> Tensor:
     return params["embedding"][tokens]
 
 
-def unembed(params: Params, x: Tensor) -> Tensor:
-    """Tied unembedding; logits in fp32."""
-    return (x @ params["embedding"].T).float()
+def unembed(params: Params, x: Tensor, tied: bool = True) -> Tensor:
+    """Unembedding through the embedding table (tied) or `lm_head` (both
+    [V, D]); logits in fp32."""
+    table = params["embedding"] if tied else params["lm_head"]
+    return (x @ table.T).float()
 
 
 def cross_entropy_loss(logits: Tensor, labels: Tensor,

@@ -194,3 +194,18 @@ def test_entry_points_default_to_cuda():
         make_env("engine/llama3.2-1b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tb.init_params(0)
+
+
+@pytest.mark.parametrize("arch", sorted(torch_configs.ALIASES))
+def test_make_env_builds_every_port_arch(arch):
+    """`engine/<arch>` is offered and built from the arch's smoke config for
+    every config of the port (olmoe-1b-7b included), as the reference's
+    `_engine_live` does."""
+    from repro_torch.platform.registry import available_envs
+    assert f"engine/{arch}/live" in available_envs()
+    env = make_env(f"engine/{arch}", device="cpu", max_batch=4,
+                   max_seq_len=32, prompt_len=4, max_new_tokens=2)
+    assert env.engine.bundle.cfg == torch_configs.get_smoke(arch)
+    assert env.work is energy.ORIN_WORKLOADS["llama3.2-1b"]
+    obs = env.pull({"freq_mhz": 612.0, "batch": 4}, 0)
+    assert obs.batch == 4 and obs.tokens == 8 and obs.latency > 0

@@ -208,3 +208,54 @@ def test_cross_entropy_matches_jax():
     out = common.cross_entropy_loss(torch.from_numpy(logits),
                                     torch.from_numpy(labels))
     np.testing.assert_allclose(float(out), float(ref), rtol=1e-6)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("layer_pattern", ("local", "global")), ("sliding_window", 4096),
+    ("attn_softcap", 50.0), ("final_softcap", 30.0), ("use_bias", True),
+    ("qkv_bias", True), ("norm", "layernorm"), ("mlp_kind", "dense"),
+    ("embed_scale", True), ("post_norms", True), ("kv_cache_dtype", "int8"),
+    ("num_prefix_embeddings", 4)])
+def test_config_refuses_what_is_not_ported(field, value):
+    """Mixed local/global patterns, sliding windows, softcaps, biases and
+    the other unported paths are refused by name, not run wrongly."""
+    jax_cfg = dataclasses.replace(jax_configs.get_smoke(ARCH),
+                                  **{field: value})
+    assert getattr(jax_cfg, field) == value     # the reference takes it
+    with pytest.raises(ValueError, match=field):
+        dataclasses.replace(torch_configs.get_smoke(ARCH), **{field: value})
+
+
+def test_config_takes_what_is_ported():
+    cfg = dataclasses.replace(torch_configs.get_smoke(ARCH), qk_norm=True,
+                              tie_embeddings=False, attn_impl="flash")
+    assert cfg.attn_spec().qk_norm
+    params = bundle_for(cfg).init_params(0, "cpu")
+    assert "lm_head" in params and "q_norm" in params["layers"][0]["attn"]
+    with pytest.raises(ValueError, match="attn_impl"):
+        dataclasses.replace(cfg, attn_impl="pallas")
+
+
+def test_qk_norm_and_untied_head_match_jax():
+    """llama3.2-1b-smoke with qk-norm and an untied LM head (olmoe's two
+    attention/head features without its MoE) against the JAX model."""
+    jcfg = dataclasses.replace(jax_configs.get_smoke(ARCH),
+                               dtype=jnp.float32, qk_norm=True,
+                               tie_embeddings=False)
+    tcfg = dataclasses.replace(torch_configs.get_smoke(ARCH),
+                               dtype=torch.float32, qk_norm=True,
+                               tie_embeddings=False)
+    jb = jax_bundle_for(jcfg)
+    jparams = jb.init_params(jax.random.PRNGKey(3))
+    # Non-zero norm scales, so a missing or misplaced norm shows.
+    rng = np.random.default_rng(3)
+    for name in ("q_norm", "k_norm"):
+        shape = jparams["layers"]["attn"][name]["scale"].shape
+        jparams["layers"]["attn"][name]["scale"] = jnp.asarray(
+            0.3 * rng.standard_normal(shape), jnp.float32)
+    tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    toks = rng.integers(1, 256, (2, 9)).astype(np.int32)
+    jl, _ = jb.forward(jparams, jnp.asarray(toks))
+    tl, _ = bundle_for(tcfg).forward(tparams, torch.from_numpy(toks))
+    _close(tl, jl)
