@@ -8,47 +8,59 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card (`nvidia-smi` name and power limit) and the build of every
      kernel from `src/repro_torch/csrc` (one nvcc per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, in bf16
-     and fp32, at the shapes the two engine paths give it (llama3.2-1b and
-     olmoe-1b-7b geometry), with its device time (CUDA events over a
-     primed stream, median of repeats), its per-call time when the host
-     issues the calls (`call_ms`: launch overhead included), the plain
+     and fp32, at the shapes the three engine paths give it (llama3.2-1b,
+     olmoe-1b-7b and rwkv6-3b geometry), with its device time (CUDA events
+     over a primed stream, median of repeats), its per-call time when the
+     host launches the calls (`call_ms`: launch overhead included), the plain
      version's device time, one PyTorch library call's (`F.rms_norm`,
      `F.scaled_dot_product_attention`, `torch.bmm`; timed here only, never
-     used by the port) and the least time the card could take (bytes over
-     3.35 TB/s or operations over the dtype's peak, whichever is larger).
-     Tolerances: 2e-2 in bf16, 2e-5 in fp32 (max abs error); the grouped
-     GEMM, whose outputs are sums over K = 1024-2048 products, 2e-2 / 1e-4
-     as |err| <= tol * (1 + |ref|);
+     used by the port; WKV6 has none) and the least time the card could
+     take (bytes over 3.35 TB/s or operations over the peak of the type
+     the kernel computes in, whichever is larger).  Tolerances: 2e-2 in
+     bf16, 2e-5 in fp32 (max abs error); the grouped GEMM, whose outputs
+     are sums over K = 1024-2048 products, and WKV6 (y and the final state,
+     sums over C·N terms and the carried state), 2e-2 / 1e-4 as
+     |err| <= tol * (1 + |ref|).  WKV6 runs at rwkv6-3b's prefill (B 28,
+     S 64, H 40, N 64, chunk 32) and decode (S 1, chunk 1) shapes, from a
+     nonzero state;
   3. model level in fp32 on narrow configs: llama3.2-1b's head geometry
      and olmoe-1b-7b's (qk-norm, untied head, 8 experts top-2 at capacity
      factor 8 so no near-tie can move a token to another expert).  The
      "flash" (kernel) and "naive" logits over a left-padded prefill and 4
      decode steps agree within 1e-4, and for olmoe the same weights run on
-     the CPU (plain versions) agree with the card within 1e-4;
+     the CPU (plain versions) agree with the card within 1e-4.  A narrow
+     rwkv6 (head_dim 64, 2 layers, mixes, decay base and bonus filled with
+     noise) on the card against the same weights on the CPU within 1e-4,
+     over a 40-token prefill (two chunks of 16 and an 8-token tail) and 4
+     decode steps;
   4. the main paths: llama3.2-1b (4a) and olmoe-1b-7b (4b) at full width
-     (16 layers, d_model 2048, bf16, attn_impl="flash", seeded random
-     weights made on the card) behind the port's InferenceEngine and
-     EngineEnvironment, each driven by CostModel + Controller + CamelTS for
-     8 rounds as `serve.py --mode engine` does, with per-pull prefill and
-     decode times against the decode step's weight-read floor.  Energy is
-     the Jetson Orin analytical board model applied to measured wall time:
-     modelled, not measured on this card;
+     (16 layers, d_model 2048, bf16, attn_impl="flash", 16-token prompts)
+     and rwkv6-3b (4c: 32 layers, d_model 2560, bf16, 64-token prompts in
+     buckets of 32, so prefill is two chunks and no tail), with seeded
+     random weights made on the card, behind the port's InferenceEngine
+     and EngineEnvironment, each driven by CostModel + Controller + CamelTS
+     for 8 rounds as `serve.py --mode engine` does, with per-pull prefill
+     and decode times against the decode step's floor (the bytes it must
+     read: weights, and for rwkv6 the recurrent state read and written).
+     Energy is the Jetson Orin analytical board model applied to measured
+     wall time: modelled, not measured on this card;
   5. after each path, its launch counters equal what the path implies
-     (counters set to 0 just before the path and read just after), then a
-     torch.profiler breakdown of one more full-width generate (kernel time
-     by name, device busy share).
+     (counters set to 0 just before the path and read just after; every
+     kernel off the path at 0), then a torch.profiler breakdown of one more
+     full-width generate (kernel time by name, device busy share).
 
 The line before the last holds the card's name and power limit, the one
-before it the kernels' JSON record (`launches` summed over both paths'
-counted runs; times at the llama shapes for the attention and norm
-kernels, as in the previous slice, and at olmoe's decode gate/up product
-for the grouped GEMM), and the last line is
+before it the kernels' JSON record (`launches` summed over the three
+paths' counted runs; times at the llama shapes for the attention and norm
+kernels, at olmoe's decode gate/up product for the grouped GEMM and at
+rwkv6-3b's decode step for WKV6), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -61,9 +73,17 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
               "float32": 67e12}      # fp32 outside the tensor cores
 TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-5}
-GEMM_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
+#: Relative tolerance (|err| <= tol * (1 + |ref|)) of the kernels whose
+#: outputs are long sums: the grouped GEMM and WKV6.
+SUM_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
 ROUNDS = 8
 MAX_BATCH, MAX_SEQ_LEN, PROMPT_LEN, NEW_TOKENS = 28, 128, 16, 8
+#: The main paths: (arch, prompt length, prompt bucket).  rwkv6-3b's
+#: prompts are two whole chunks of 32, so its prefill runs the chunked
+#: kernel once a layer and no per-token tail.
+PATHS = (("llama3.2-1b", PROMPT_LEN, PROMPT_LEN),
+         ("olmoe-1b-7b", PROMPT_LEN, PROMPT_LEN),
+         ("rwkv6-3b", 64, 32))
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
@@ -76,7 +96,14 @@ KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:38"),
     "moe_gemm": ("src/repro_torch/csrc/moe_gemm.cu",
                  "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
+    "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6/rwkv6.py:31"),
 }
+#: Substrings of the port's CUDA kernel names (csrc/*.cu).
+PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel", "moe_gemm_",
+                     "wkv6_")
+WKV6_LIBRARY_NOTE = ("no single PyTorch call computes the WKV6 recurrence "
+                     "(no library kernel for it), so library_ms is null")
 
 
 def fail(msg: str) -> None:
@@ -132,6 +159,19 @@ def time_ms(fn, reps: int = 15, inner: int = 10):
     return statistics.median(dev), statistics.median(call)
 
 
+def wkv6_flops(b, s, h, n, chunk):
+    """Operations of the WKV6 kernel on these shapes: per token and (b, h)
+    7 N^2 in the step form (chunk 1); per chunk 4 C N^2 (inter-chunk
+    product and state update) + 2 C (C - 1) N (intra-chunk weights and
+    their product with v, strictly lower triangle) + 4 C N (bonus) + 2 N^2
+    (state decay) in the chunked form."""
+    if chunk == 1:
+        return b * h * s * 7 * n * n
+    per_chunk = 4 * chunk * n * n + 2 * chunk * (chunk - 1) * n \
+        + 4 * chunk * n + 2 * n * n
+    return b * h * (s // chunk) * per_chunk
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -150,24 +190,30 @@ def kernel_checks(torch, ops):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
 
+    def flat(out):
+        """One fp32 vector of a kernel's output (a tensor or a tuple)."""
+        outs = out if isinstance(out, tuple) else (out,)
+        return torch.cat([t.float().flatten() for t in outs])
+
     def check(name, dtype_name, shape, kernel, plain, library, nbytes,
-              flops, is_main, gemm=False):
-        out, ref = kernel(), plain()
+              flops, is_main, long_sums=False, compute_dtype=None,
+              library_note=None):
+        out, ref = flat(kernel()), flat(plain())
         torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
+        diff = (out - ref).abs()
         err = diff.max().item()
-        # The grouped GEMM is held as |err| <= tol * (1 + |ref|): one bf16
-        # rounding step of an output of magnitude 4-8 is 0.03.
-        scaled = (diff / (1 + ref.float().abs())).max().item() if gemm \
+        # Long sums are held as |err| <= tol * (1 + |ref|): one bf16
+        # rounding step of a GEMM output of magnitude 4-8 is 0.03.
+        scaled = (diff / (1 + ref.abs())).max().item() if long_sums \
             else err
         finite = bool(torch.isfinite(out).all().item())
         (ms, call_ms), (plain_ms, _) = time_ms(kernel), time_ms(plain)
         lib_ms = time_ms(library)[0] if library is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS[dtype_name]
+        t_ops = flops / PEAK_FLOPS[compute_dtype or dtype_name]
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        tol = (GEMM_TOLERANCE if gemm else TOLERANCE)[dtype_name]
+        tol = (SUM_TOLERANCE if long_sums else TOLERANCE)[dtype_name]
         say(f"kernel {name} dtype={dtype_name} shape={shape} "
             f"kernel_ms={ms:.5f} call_ms={call_ms:.5f} "
             f"plain_ms={plain_ms:.5f} "
@@ -175,7 +221,7 @@ def kernel_checks(torch, ops):
             f"bound_ms={bound_ms:.6f} bound_by={bound_by} "
             f"bytes={int(nbytes)} flops={int(flops)} "
             f"max_abs_err={err:.3e}"
-            + (f" err_over_1_plus_ref={scaled:.3e}" if gemm else "")
+            + (f" err_over_1_plus_ref={scaled:.3e}" if long_sums else "")
             + f" tol={tol:g} finite={finite}")
         if not finite or not scaled <= tol:
             failures.append(f"{name} {dtype_name} {shape}: err={scaled} "
@@ -184,6 +230,8 @@ def kernel_checks(torch, ops):
             main[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms}
+            if library_note is not None:
+                main[name]["library_note"] = library_note
 
     def decode_case(dtype_name, b, s_len, lo, hi, h, kvh, d, is_main):
         dt = getattr(torch, dtype_name)
@@ -229,6 +277,41 @@ def kernel_checks(torch, ops):
                   attn_mask=mask[:, None], enable_gqa=True),
               (2 * q.numel() + 2 * k.numel()) * e + 4 * b,
               4 * pairs * h * d, is_main)
+
+    def wkv6_case(dtype_name, s_len, chunk, is_main):
+        dt = getattr(torch, dtype_name)
+        e = torch.tensor([], dtype=dt).element_size()
+        wk = ops["wkv6"]
+        b, h, n = MAX_BATCH, 40, 64
+        shape = (b, s_len, h, n)
+        r, k, v = rnd(shape, dt, 0.5), rnd(shape, dt, 0.5), rnd(shape, dt)
+        logw = (-torch.exp(rnd(shape, torch.float32) - 2.0)).clamp(-4.0,
+                                                                   -1e-6)
+        u = rnd((h, n), torch.float32, 0.2)
+        st0 = rnd((b, h, n, n), torch.float32, 0.5)
+        # Calls take turns over 4 copies of the 18.4 MB state (73 MB, more
+        # than the 50 MB L2), so each finds its state cold, as a layer's
+        # decode step does after the other 31 layers' weights went by.  The
+        # kernel updates its copy in place; the first call of each side
+        # starts from st0.
+        kernel_states = itertools.cycle([st0.clone() for _ in range(4)])
+        plain_states = itertools.cycle([st0.clone() for _ in range(4)])
+
+        def kernel():
+            return wk.wkv6(r, k, v, logw, u, next(kernel_states),
+                           chunk=chunk)
+
+        def plain():
+            st = next(plain_states)
+            if s_len == 1:
+                return wk.wkv6_step_ref(r, k, v, logw, u, st)
+            return wk.wkv6_chunked_ref(r, k, v, logw, u, st, chunk)
+        nbytes = 3 * r.numel() * e + 2 * 4 * r.numel() + 4 * u.numel() \
+            + 2 * 4 * st0.numel()
+        check("wkv6", dtype_name, (b, s_len, h, n, f"chunk {chunk}"),
+              kernel, plain, None, nbytes,
+              wkv6_flops(b, s_len, h, n, chunk), is_main, long_sums=True,
+              compute_dtype="float32", library_note=WKV6_LIBRARY_NOTE)
 
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
@@ -283,8 +366,14 @@ def kernel_checks(torch, ops):
                   lambda: torch.bmm(x, w),
                   (x.numel() + w.numel() + 64 * c * n_dim) * e,
                   2 * 64 * c * k_dim * n_dim,
-                  is_bf16 and (c, k_dim) == (8, 2048), gemm=True)
+                  is_bf16 and (c, k_dim) == (8, 2048), long_sums=True)
             del x, w
+
+        # WKV6 at rwkv6-3b's heads (40 x 64), batch 28, from a nonzero
+        # state: the chunked prefill (64 tokens, chunk 32) and the decode
+        # step.  The kernel computes in fp32 whatever the input type.
+        for s_len, chunk in ((64, 32), (1, 1)):
+            wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1)
     if failures:
         fail("kernel != plain version: " + "; ".join(failures))
     return main
@@ -376,6 +465,57 @@ def model_check(torch, rt):
             fail(f"{label}: card and CPU logits differ by {diff}")
 
 
+def rwkv6_check(torch, rt):
+    """A narrow fp32 rwkv6 (40-token prefill: two chunks of 16 and an
+    8-token tail, then 4 decode steps) on the card (the WKV6 kernel)
+    against the same weights on the CPU (plain versions)."""
+    cfg = rt.rwkv6.RWKV6Config(
+        name="rwkv6-narrow", n_layers=2, d_model=256, head_dim=64, d_ff=512,
+        vocab_size=1024, lora_rank_decay=16, lora_rank_mix=8, chunk=16,
+        dtype=torch.float32)
+    params = rt.bundle_for(cfg).init_params(0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    _add_noise(torch, params, gen)
+    b, plen, steps = 4, 40, 4
+    pads = torch.tensor([0, 3, 9, 30])
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (b, plen), generator=rng)
+    mask = torch.arange(plen)[None] >= pads[:, None]
+    toks = torch.where(mask, toks, torch.zeros_like(toks))
+    feed = []
+    on_card = _run_narrow(torch, rt, cfg, params, toks, mask, feed, steps,
+                          "cuda")
+    on_cpu = _run_narrow(torch, rt, cfg, _tree_to(params, "cpu"), toks, mask,
+                         feed, steps, "cpu")
+    diff = (on_card - on_cpu).abs().max().item()
+    finite = bool(torch.isfinite(on_card).all().item())
+    say(f"model fp32 rwkv6 narrow ({cfg.n_layers}L, d{cfg.d_model}, "
+        f"{cfg.n_heads}H x {cfg.head_dim}, chunk {cfg.chunk}) on the card "
+        f"(kernels) vs on the CPU (plain versions), prefill {plen} "
+        f"(2 chunks + 8-token tail) + {steps} decode: "
+        f"max_abs_diff={diff:.3e} tol=1e-4 finite={finite}")
+    if not finite or not diff <= 1e-4:
+        fail(f"rwkv6: card and CPU logits differ by {diff}")
+
+
+#: rwkv6 leaves the reference initialises to zero, given noise in the
+#: narrow check so that the mixes, decay base, bonus and norms all count.
+_RWKV6_NOISE = {"maa_x": 0.3, "maa_rkvwg": 0.3, "maa_k": 0.3, "maa_r": 0.3,
+                "decay_base": 2.5, "bonus": 0.5, "scale": 0.1, "bias": 0.1}
+
+
+def _add_noise(torch, tree, gen, key=None):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _add_noise(torch, v, gen, k)
+    elif isinstance(tree, list):
+        for v in tree:
+            _add_noise(torch, v, gen)
+    elif key in _RWKV6_NOISE:
+        tree.add_(_RWKV6_NOISE[key] * torch.randn(
+            tree.shape, generator=gen, device=tree.device, dtype=tree.dtype))
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -388,12 +528,22 @@ def _tree_to(tree, device):
 # Phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def weight_read_floor_ms(cfg, batch):
-    """Least time of one decode step at `batch`: the bytes of every weight
-    the step must read (attention, the router, the LM head, and each expert
-    whose capacity buffer the step computes -- all of them, since decode
-    capacity is at least top_k rows an expert) over 3.35 TB/s."""
+def weight_read_floor_ms(family, cfg, batch):
+    """Least time of one decode step at `batch`: the bytes it must move
+    over 3.35 TB/s.  Transformers: every weight the step reads (attention,
+    the router, the LM head, and each expert whose capacity buffer the
+    step computes -- all of them, since decode capacity is at least top_k
+    rows an expert).  rwkv6: every weight but the embedding table (its B
+    rows only) and the recurrent state (WKV fp32, token shifts bf16) read
+    and written once."""
     d, e = cfg.d_model, 2   # bf16
+    head = cfg.vocab_size * d * e + batch * d * e
+    if family == "rwkv6":
+        tables = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+        state = cfg.n_layers * batch * (
+            cfg.n_heads * cfg.head_dim ** 2 * 4 + 2 * d * e)
+        return ((cfg.n_params - tables) * e + head + 2 * state) \
+            / HBM_BYTES_PER_S * 1e3
     attn = 2 * d * cfg.n_heads * cfg.head_dim + \
         2 * d * cfg.n_kv_heads * cfg.head_dim
     if cfg.moe is None:
@@ -401,39 +551,52 @@ def weight_read_floor_ms(cfg, batch):
     else:
         m = cfg.moe
         ffn = 3 * m.n_experts * d * m.d_ff * e + d * m.n_experts * 4
-    head = cfg.vocab_size * d * e + batch * d * e
     return (cfg.n_layers * (attn * e + ffn) + head) / HBM_BYTES_PER_S * 1e3
 
 
-def serve_full_width(torch, rt, ops, arch):
+def describe(family, cfg):
+    """One line of a full-width config's shape."""
+    if family == "rwkv6":
+        return (f"{cfg.name} {cfg.n_layers}L d_model={cfg.d_model} "
+                f"{cfg.n_heads}H x {cfg.head_dim} (attention-free) "
+                f"d_ff={cfg.d_ff} chunk={cfg.chunk} "
+                f"tied={cfg.tie_embeddings}")
+    ffn = (f"d_ff={cfg.d_ff}" if cfg.moe is None else
+           f"moe={cfg.moe.n_experts}x top-{cfg.moe.top_k} "
+           f"d_ff={cfg.moe.d_ff} qk_norm={cfg.qk_norm} "
+           f"tied={cfg.tie_embeddings}")
+    return (f"{cfg.name} {cfg.n_layers}L d_model={cfg.d_model} "
+            f"{cfg.n_heads}H/{cfg.n_kv_heads}KV x {cfg.head_dim} {ffn} "
+            f"attn_impl={cfg.attn_impl}")
+
+
+def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
     import dataclasses
     import numpy as np
-    cfg = dataclasses.replace(rt.configs.get(arch), attn_impl="flash")
+    cfg = rt.configs.get(arch)
+    if rt.bundle_for(cfg).family == "transformer":
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
     bundle = rt.bundle_for(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     params = bundle.init_params(0, "cuda")
     torch.cuda.synchronize()
-    ffn = (f"d_ff={cfg.d_ff}" if cfg.moe is None else
-           f"moe={cfg.moe.n_experts}x top-{cfg.moe.top_k} "
-           f"d_ff={cfg.moe.d_ff} qk_norm={cfg.qk_norm} "
-           f"tied={cfg.tie_embeddings}")
-    say(f"full width: {cfg.name} {cfg.n_layers}L d_model={cfg.d_model} "
-        f"{cfg.n_heads}H/{cfg.n_kv_heads}KV x {cfg.head_dim} {ffn} "
+    say(f"full width: {describe(bundle.family, cfg)} "
         f"vocab={cfg.vocab_size} params={cfg.n_params} dtype=bfloat16 "
-        f"attn_impl=flash init_s={time.monotonic() - t0:.2f}")
+        f"prompt_len={prompt_len} prompt_bucket={bucket} "
+        f"init_s={time.monotonic() - t0:.2f}")
     engine = rt.InferenceEngine(bundle, params, max_batch=MAX_BATCH,
                                 max_seq_len=MAX_SEQ_LEN,
-                                prompt_bucket=PROMPT_LEN, device="cuda")
+                                prompt_bucket=bucket, device="cuda")
     env = rt.EngineEnvironment(engine, rt.energy.JETSON_AGX_ORIN,
                                rt.energy.ORIN_WORKLOADS["llama3.2-1b"],
-                               prompt_len=PROMPT_LEN,
+                               prompt_len=prompt_len,
                                max_new_tokens=NEW_TOKENS, seed=0)
 
     # Warm-up (cuBLAS handles, kernel loading) and an output check, before
     # the counted run.
     rng = np.random.default_rng(7)
-    warm = [rng.integers(1, cfg.vocab_size, PROMPT_LEN).astype(np.int32)
+    warm = [rng.integers(1, cfg.vocab_size, prompt_len).astype(np.int32)
             for _ in range(MAX_BATCH)]
     toks, _ = engine.generate(warm, NEW_TOKENS)
     cache = bundle.init_cache(2, 32, "cuda")
@@ -462,12 +625,12 @@ def serve_full_width(torch, rt, ops, arch):
         [(r.t, r.knobs, r.obs) for r in res.records]
     for t, knobs, obs in pulls:
         md = obs.metadata
-        floor = weight_read_floor_ms(cfg, knobs["batch"])
+        floor = weight_read_floor_ms(bundle.family, cfg, knobs["batch"])
         say(f"pull {arch} {t} freq_mhz={knobs['freq_mhz']} "
             f"batch={knobs['batch']} "
             f"prefill_s={md['prefill_s']:.6f} decode_s={md['decode_s']:.6f} "
             f"decode_step_ms={1e3 * md['decode_s'] / NEW_TOKENS:.4f} "
-            f"weight_read_floor_ms={floor:.4f} "
+            f"decode_floor_ms={floor:.4f} "
             f"tokens_per_s={md['tokens_per_s']:.1f} "
             f"modelled_orin_energy_j_per_req={obs.energy:.4f} "
             f"latency_s_per_req={obs.latency:.4f}")
@@ -479,17 +642,27 @@ def serve_full_width(torch, rt, ops, arch):
     return counts, len(pulls), cfg, engine, warm
 
 
-def expected_launches(cfg, n_generate):
+def expected_launches(family, cfg, n_generate, prompt_len):
     """Launches one path must make over `n_generate` generate calls (one
-    prefill and NEW_TOKENS decode steps each)."""
+    prefill of `prompt_len` tokens and NEW_TOKENS decode steps each)."""
     n_layers = cfg.n_layers
     steps = n_generate * NEW_TOKENS
+    counts = dict.fromkeys(KERNELS, 0)
+    if family == "rwkv6":
+        # A layer's prefill: one chunked call over the prompt's whole
+        # chunks, one call a tail token; then one call a decode step.
+        head = 1 if prompt_len >= cfg.chunk else 0
+        counts["wkv6"] = n_layers * (
+            n_generate * (head + prompt_len % cfg.chunk) + steps)
+        return counts
     passes = n_generate + steps
     norms = 4 * n_layers + 1 if cfg.qk_norm else 2 * n_layers + 1
-    return {"decode_attention": n_layers * steps,
-            "flash_attention": n_layers * n_generate,
-            "moe_gemm": 3 * n_layers * passes if cfg.moe is not None else 0,
-            "rmsnorm": norms * passes}
+    counts.update({"decode_attention": n_layers * steps,
+                   "flash_attention": n_layers * n_generate,
+                   "moe_gemm": 3 * n_layers * passes
+                   if cfg.moe is not None else 0,
+                   "rmsnorm": norms * passes})
+    return counts
 
 
 def profile_generate(torch, engine, prompts):
@@ -515,6 +688,13 @@ def profile_generate(torch, engine, prompts):
         f"per_forward_pass={n_launch / (1 + NEW_TOKENS):.1f}")
     say(events.table(sort_by="self_device_time_total", row_limit=15,
                      max_name_column_width=60))
+    # The port's own kernels as the path runs them (caches as they are
+    # there, not as a timing loop leaves them).
+    for ev in kernels:
+        if any(k in ev.key for k in PORT_KERNEL_NAMES):
+            say(f"kernel_in_path {engine.bundle.name} {ev.key[:70]}: "
+                f"launches={ev.count} device_us_per_launch="
+                f"{ev.self_device_time_total / ev.count:.3f}")
 
 
 def main() -> None:
@@ -531,8 +711,9 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.moe_gemm import ops as mg_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rwkv6 import ops as wk_ops
     ops = {"rmsnorm": rms_ops, "decode_attention": dec_ops,
-           "flash_attention": fl_ops, "moe_gemm": mg_ops}
+           "flash_attention": fl_ops, "moe_gemm": mg_ops, "wkv6": wk_ops}
 
     # Phase 1
     smi = subprocess.run(
@@ -553,7 +734,7 @@ def main() -> None:
     from repro_torch.core.baselines import make_policy
     from repro_torch.core.controller import Controller
     from repro_torch.core.cost import CostModel
-    from repro_torch.models import transformer
+    from repro_torch.models import rwkv6, transformer
     from repro_torch.models.moe import MoEConfig
     from repro_torch.models.registry import bundle_for
     from repro_torch.platform import make_space
@@ -561,17 +742,20 @@ def main() -> None:
     from repro_torch.serving.engine import EngineEnvironment, InferenceEngine
     rt = argparse.Namespace(
         configs=configs, make_policy=make_policy, Controller=Controller,
-        CostModel=CostModel, transformer=transformer, bundle_for=bundle_for,
+        CostModel=CostModel, transformer=transformer, rwkv6=rwkv6,
+        bundle_for=bundle_for,
         make_space=make_space, energy=energy, MoEConfig=MoEConfig,
         EngineEnvironment=EngineEnvironment, InferenceEngine=InferenceEngine)
     model_check(torch, rt)
+    rwkv6_check(torch, rt)
 
     # Phases 4 and 5, once per main path
     totals = dict.fromkeys(ops, 0)
-    for arch in ("llama3.2-1b", "olmoe-1b-7b"):
+    for arch, prompt_len, bucket in PATHS:
         counts, n_generate, cfg, engine, prompts = serve_full_width(
-            torch, rt, ops, arch)
-        expected = expected_launches(cfg, n_generate)
+            torch, rt, ops, arch, prompt_len, bucket)
+        expected = expected_launches(engine.bundle.family, cfg, n_generate,
+                                     prompt_len)
         say(f"launch counts {arch} over {n_generate} generate calls "
             f"({n_generate * NEW_TOKENS} decode steps): {counts} "
             f"expected {expected}")
@@ -588,11 +772,7 @@ def main() -> None:
         row = main_rows[name]
         record.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": totals[name],
-                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                       "plain_ms": row["plain_ms"],
-                       "bound_ms": row["bound_ms"],
-                       "bound_by": row["bound_by"],
-                       "library_ms": row["library_ms"]})
+                       **row})
     say(json.dumps({"kernels": record}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

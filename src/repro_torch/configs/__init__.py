@@ -1,5 +1,5 @@
-"""Architecture configs of the port (llama3.2-1b and olmoe-1b-7b of
-`repro.configs`).
+"""Architecture configs of the port (llama3.2-1b, olmoe-1b-7b and rwkv6-3b
+of `repro.configs`).
 
 `get(name)` returns the full config; `get_smoke(name)` the reduced
 same-family config for CPU tests and the default engine environment."""
@@ -12,6 +12,7 @@ from typing import Dict
 ALIASES: Dict[str, str] = {
     "llama3.2-1b": "llama32_1b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 

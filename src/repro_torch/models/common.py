@@ -1,8 +1,9 @@
 """Shared model components of the port (the parts of `repro.models.common`
-that llama3.2-1b and olmoe-1b-7b reach): RMSNorm, rotary embeddings, GQA
-attention with optional qk-norm, the native KV cache, cached decode
-attention, prefill into the cache, the gated MLP, tied or untied
-embeddings and the loss.
+that llama3.2-1b, olmoe-1b-7b and rwkv6-3b reach): RMSNorm, LayerNorm,
+rotary embeddings, GQA attention with optional qk-norm, the native KV
+cache, cached decode attention, prefill into the cache, the gated MLP,
+tied or untied embeddings, the loss, and the conversion of a JAX params
+tree.
 
 Parameters are plain nested dicts of tensors with the reference's key
 names and its `[in, out]` weight layout (``x @ w``).  Dtype policy: params
@@ -21,8 +22,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -68,6 +70,23 @@ def rmsnorm(params: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
     """RMSNorm with the unit offset (apply uses 1 + scale), through the
     fused kernel (`kernels/rmsnorm/ops.py`)."""
     return rmsnorm_op(x, params["scale"], eps=eps)
+
+
+def layernorm_init(dim: int, dtype, device) -> Params:
+    return {"scale": torch.zeros((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """LayerNorm over the last axis in fp32 with `(1 + scale)` and `bias`,
+    cast back to x's dtype.  The JAX package has no LayerNorm kernel, so
+    this is plain PyTorch."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    out = xf * (1.0 + params["scale"].float()) + params["bias"].float()
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -334,3 +353,41 @@ def cross_entropy_loss(logits: Tensor, labels: Tensor,
     nll = lse - gold
     w = (labels != ignore_id).float()
     return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# Weights from JAX
+# ---------------------------------------------------------------------------
+
+def tensor_from_jax(a, dtype, device) -> Tensor:
+    """A numpy or JAX array as a torch tensor of `dtype` on `device`."""
+    # np.asarray of a bf16 JAX array is an ml_dtypes.bfloat16 array, which
+    # torch.from_numpy rejects; float32 holds every bf16 value exactly.
+    return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()) \
+        .to(device=device, dtype=dtype)
+
+
+def params_from_jax_tree(tree: Params, n_layers: int,
+                         dtype_of: Callable[[str], Any], device) -> Params:
+    """The port's params from a JAX params tree (nested dicts of numpy or
+    JAX arrays) whose `tree["layers"]` stacks the layers on a leading
+    `[layers, ...]` axis.  Keys are kept, the layers are unstacked into a
+    list of per-layer dicts, weights keep their layout, and each leaf is
+    cast to `dtype_of(its key)`."""
+
+    def conv(node, layer=None, key=None):
+        if isinstance(node, dict):
+            return {k: conv(v, layer, k) for k, v in node.items()}
+        a = np.asarray(node, dtype=np.float32)
+        return tensor_from_jax(a if layer is None else a[layer],
+                               dtype_of(key), device)
+
+    leaf = tree["layers"]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    n = np.asarray(leaf).shape[0]
+    if n != n_layers:
+        raise ValueError(f"tree has {n} layers, config {n_layers}")
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [conv(tree["layers"], i) for i in range(n)]
+    return out

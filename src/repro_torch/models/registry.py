@@ -1,4 +1,4 @@
-"""Uniform model API of the port (the transformer family of
+"""Uniform model API of the port (the transformer and rwkv6 families of
 `repro.models.registry`).
 
 A `ModelBundle` exposes the family-agnostic surface the serving engine
@@ -16,13 +16,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: Any
-    family: str            # "transformer"
+    family: str            # "transformer" | "rwkv6"
     module: Any
 
     def init_params(self, seed: int = 0, device=None):
@@ -42,6 +42,13 @@ class ModelBundle:
                                        **kw)
 
     @property
+    def recurrent(self) -> bool:
+        """The cache is a recurrent state that prefill starts from and
+        updates in place, so a reused cache must be zeroed first (a KV
+        cache needs no reset: stale entries are masked or rewritten)."""
+        return self.family in _RECURRENT
+
+    @property
     def name(self) -> str:
         return self.cfg.name
 
@@ -50,9 +57,12 @@ class ModelBundle:
         return self.cfg.n_params
 
 
-_FAMILY_MODULES = {"transformer": transformer}
+_FAMILY_MODULES = {"transformer": transformer, "rwkv6": rwkv6}
 
-_FAMILY_OF_CONFIG = {transformer.TransformerConfig: "transformer"}
+_FAMILY_OF_CONFIG = {transformer.TransformerConfig: "transformer",
+                     rwkv6.RWKV6Config: "rwkv6"}
+
+_RECURRENT = frozenset({"rwkv6"})
 
 
 def bundle_for(cfg) -> ModelBundle:

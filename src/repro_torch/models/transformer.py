@@ -29,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -165,37 +164,16 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 _FIXED_DTYPES = {"router": torch.float32}
 
 
-def _to_torch(a, dtype, device) -> Tensor:
-    # np.asarray of a bf16 JAX array is an ml_dtypes.bfloat16 array, which
-    # torch.from_numpy rejects; float32 holds every bf16 value exactly.
-    return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()) \
-        .to(device=device, dtype=dtype)
-
-
 def params_from_jax(cfg: TransformerConfig, tree: Params,
                     device=None) -> Params:
     """The port's params from the JAX params tree of the same config
-    (nested dicts of numpy or JAX arrays).  Keys are kept; the leading
-    `[layers, ...]` axis of `tree["layers"]` is unstacked into a list of
-    per-layer dicts; weights keep their `[in, out]` layout (no transpose).
-    Leaves are cast to `cfg.dtype`, except those in `_FIXED_DTYPES`, which
-    keep the dtype the reference gives them.
+    (`common.params_from_jax_tree`: keys kept, the `[layers, ...]` axis
+    unstacked, no transpose).  Leaves are cast to `cfg.dtype`, except those
+    in `_FIXED_DTYPES`, which keep the dtype the reference gives them.
     """
-    dev = resolve_device(device)
-
-    def conv(node, layer=None, key=None):
-        if isinstance(node, dict):
-            return {k: conv(v, layer, k) for k, v in node.items()}
-        a = np.asarray(node, dtype=np.float32)
-        return _to_torch(a if layer is None else a[layer],
-                         _FIXED_DTYPES.get(key, cfg.dtype), dev)
-
-    n = np.asarray(tree["layers"]["norm_attn"]["scale"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [conv(tree["layers"], i) for i in range(n)]
-    return out
+    return common.params_from_jax_tree(
+        tree, cfg.n_layers, lambda key: _FIXED_DTYPES.get(key, cfg.dtype),
+        resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 
 Tolerances: 2e-5 in fp32, 2e-2 in bf16 (tests/test_kernels.py); the
-grouped GEMM, a sum of 1024-2048 products an output, 1e-4 in fp32.
+grouped GEMM, a sum of 1024-2048 products an output, 1e-4 in fp32; WKV6,
+whose outputs are sums over C·N terms and over the carried state, 1e-4 in
+fp32 (its kernel computes in fp32 from bf16 inputs too, so bf16 is held to
+2e-2).
 """
 
 import pytest
@@ -16,6 +19,7 @@ from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fl_ops
 from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rwkv6 import ops as wk_ops
 from repro_torch.models import moe
 
 CUDA_MISSING_REASON = "needs a CUDA device; the kernel has no CPU mode"
@@ -170,3 +174,78 @@ def test_grouped_gemm_rejects_what_the_kernel_cannot_take(rnd):
         mg_ops.grouped_gemm(x, w)
     with pytest.raises(ValueError, match="contiguous"):
         mg_ops.grouped_gemm(x, rnd((2, 16, 16), torch.float32).transpose(1, 2))
+
+
+WKV_DTYPES = {"float32": (torch.float32, 1e-4),
+              "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+def _wkv_inputs(rnd, b, s, h, n, dt, width=None):
+    """r, k, v, logw in [B, S, H, N] (views of [B, S, H, width] tensors
+    when `width` is given, so the kernel reads them through strides),
+    bonus and a nonzero initial state."""
+    shape = (b, s, h, width or n)
+    r, k = rnd(shape, dt, 0.5), rnd(shape, dt, 0.5)
+    v = rnd(shape, dt)
+    logw = (-torch.exp(rnd(shape, torch.float32) - 2.0)).clamp(-4.0, -1e-6)
+    r, k, v, logw = (a[..., :n] for a in (r, k, v, logw))
+    return (r, k, v, logw, rnd((h, n), torch.float32, 0.2),
+            rnd((b, h, n, n), torch.float32, 0.5))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("dtype", list(WKV_DTYPES))
+def test_wkv6_kernel_matches_plain(rnd, dtype, n):
+    """Chunk 1 (the step kernel), 8 and 32 over 64 tokens, and one token,
+    each from a nonzero state, with strided inputs; the final state is
+    written in place."""
+    dt, tol = WKV_DTYPES[dtype]
+    before = wk_ops.launches
+    cases = ((64, 1), (64, 8), (64, 32), (1, 1))
+    for s, chunk in cases:
+        r, k, v, logw, u, st = _wkv_inputs(rnd, 3, s, 5, n, dt, width=n + 8)
+        assert not r.is_contiguous()
+        plain = wk_ops.wkv6_step_ref if s == 1 else (
+            lambda *a: wk_ops.wkv6_chunked_ref(*a, chunk))
+        y_ref, st_ref = plain(r, k, v, logw, u, st)
+        y, out = wk_ops.wkv6(r, k, v, logw, u, st, chunk=chunk)
+        torch.cuda.synchronize()
+        assert out is st
+        torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+        torch.testing.assert_close(st, st_ref, rtol=tol, atol=tol)
+    assert wk_ops.launches == before + len(cases)
+
+
+@pytest.mark.requires_cuda
+def test_wkv6_kernel_matches_the_sequential_oracle_at_full_width(rnd):
+    """rwkv6-3b's heads (40 x 64) at batch 28: the chunked prefill (64
+    tokens, chunk 32) against the token-by-token recurrence."""
+    r, k, v, logw, u, st = _wkv_inputs(rnd, 28, 64, 40, 64, torch.bfloat16)
+    y_ref, st_ref = wk_ops.wkv6_sequential(r, k, v, logw, u, st)
+    y, _ = wk_ops.wkv6(r, k, v, logw, u, st, chunk=32)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_wkv6_rejects_what_the_kernel_cannot_take(rnd):
+    f32 = torch.float32
+    args = _wkv_inputs(rnd, 2, 64, 3, 48, f32)
+    with pytest.raises(ValueError, match="head dim"):
+        wk_ops.wkv6(*args, chunk=8)
+    args = _wkv_inputs(rnd, 2, 64, 3, 16, f32)
+    with pytest.raises(ValueError, match="chunk"):
+        wk_ops.wkv6(*args, chunk=24)          # does not divide S
+    with pytest.raises(ValueError, match="chunk"):
+        wk_ops.wkv6(*args, chunk=64)          # longer than 32
+    r, k, v, logw, u, st = args
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wk_ops.wkv6(r, k, v, logw, u, st.cpu(), chunk=8)
+    with pytest.raises(TypeError):
+        wk_ops.wkv6(r, k.bfloat16(), v, logw, u, st, chunk=8)
+    with pytest.raises(TypeError):
+        wk_ops.wkv6(r, k, v, logw.bfloat16(), u, st, chunk=8)
+    with pytest.raises(ValueError, match="strides"):
+        wk_ops.wkv6(r, k, v, logw.transpose(1, 2).contiguous()
+                    .transpose(1, 2), u, st, chunk=8)
