@@ -8,13 +8,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card (`nvidia-smi` name and power limit) and the build of every
      kernel from `src/repro_torch/csrc` (one nvcc per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, in bf16
-     and fp32, at the shapes the three engine paths give it (llama3.2-1b,
-     olmoe-1b-7b and rwkv6-3b geometry), with its device time (CUDA events
+     and fp32, at the shapes the four engine paths give it (llama3.2-1b,
+     olmoe-1b-7b, rwkv6-3b and recurrentgemma-9b geometry), with its device
+     time (CUDA events
      over a primed stream, median of repeats), its per-call time when the
      host launches the calls (`call_ms`: launch overhead included), the plain
      version's device time, one PyTorch library call's (`F.rms_norm`,
      `F.scaled_dot_product_attention`, `torch.bmm`; timed here only, never
-     used by the port; WKV6 has none) and the least time the card could
+     used by the port; WKV6 and the RG-LRU scan have none) and the least
+     time the card could
      take (bytes over 3.35 TB/s or operations over the peak of the type
      the kernel computes in, whichever is larger).  Tolerances: 2e-2 in
      bf16, 2e-5 in fp32 (max abs error); the grouped GEMM, whose outputs
@@ -22,7 +24,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      sums over C·N terms and the carried state), 2e-2 / 1e-4 as
      |err| <= tol * (1 + |ref|).  WKV6 runs at rwkv6-3b's prefill (B 28,
      S 64, H 40, N 64, chunk 32) and decode (S 1, chunk 1) shapes, from a
-     nonzero state;
+     nonzero state.  The RG-LRU scan (fp32 only: the recurrence's inputs
+     and state are fp32 in the model) runs at recurrentgemma-9b's prefill
+     (B 28, S 16, W 4096) and decode (S 1) shapes from a nonzero state and
+     is held, on h and on the final state, to SUM_TOLERANCE's 1e-4 as
+     |err| <= 1e-4 * (1 + |ref|): the state carries every earlier step,
+     summed in another order by the plain version.  Prefill attention also
+     runs at recurrentgemma-9b's heads (16/1 x 256, window 2048), and
+     RMSNorm at its d_model 4096;
   3. model level in fp32 on narrow configs: llama3.2-1b's head geometry
      and olmoe-1b-7b's (qk-norm, untied head, 8 experts top-2 at capacity
      factor 8 so no near-tie can move a token to another expert).  The
@@ -32,16 +41,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rwkv6 (head_dim 64, 2 layers, mixes, decay base and bonus filled with
      noise) on the card against the same weights on the CPU within 1e-4,
      over a 40-token prefill (two chunks of 16 and an 8-token tail) and 4
-     decode steps;
+     decode steps.  A narrow fp32 recurrentgemma (3 blocks: recurrent,
+     recurrent, local attention; d_model and lru_width 256, 16/1 heads x
+     256, window 16; gate biases, conv bias and norm scales filled with
+     noise) over a left-padded 40-token prefill into a 16-slot ring (the
+     prefill rolls it) and 8 decode steps that wrap it: flash (kernels) vs
+     naive on the card, and flash on the card vs on the CPU (plain
+     versions), within 1e-4;
   4. the main paths: llama3.2-1b (4a) and olmoe-1b-7b (4b) at full width
      (16 layers, d_model 2048, bf16, attn_impl="flash", 16-token prompts)
      and rwkv6-3b (4c: 32 layers, d_model 2560, bf16, 64-token prompts in
-     buckets of 32, so prefill is two chunks and no tail), with seeded
+     buckets of 32, so prefill is two chunks and no tail) and
+     recurrentgemma-9b (4d: 38 blocks, d_model 4096, bf16,
+     attn_impl="flash", 16-token prompts; its attention caches are plain
+     128-slot caches, min(128, 2048), so the window is inert here and the
+     ring is exercised by phase 3), with seeded
      random weights made on the card, behind the port's InferenceEngine
      and EngineEnvironment, each driven by CostModel + Controller + CamelTS
      for 8 rounds as `serve.py --mode engine` does, with per-pull prefill
      and decode times against the decode step's floor (the bytes it must
-     read: weights, and for rwkv6 the recurrent state read and written).
+     read: weights, and for rwkv6 and recurrentgemma the recurrent state
+     read and written, and recurrentgemma's attention caches read).
      Energy is the Jetson Orin analytical board model applied to measured
      wall time: modelled, not measured on this card;
   5. after each path, its launch counters equal what the path implies
@@ -50,10 +70,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      full-width generate (kernel time by name, device busy share).
 
 The line before the last holds the card's name and power limit, the one
-before it the kernels' JSON record (`launches` summed over the three
+before it the kernels' JSON record (`launches` summed over the four
 paths' counted runs; times at the llama shapes for the attention and norm
-kernels, at olmoe's decode gate/up product for the grouped GEMM and at
-rwkv6-3b's decode step for WKV6), and the last line is
+kernels, at olmoe's decode gate/up product for the grouped GEMM, at
+rwkv6-3b's decode step for WKV6 and at recurrentgemma-9b's decode step
+for the RG-LRU scan), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,7 +95,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
               "float32": 67e12}      # fp32 outside the tensor cores
 TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-5}
 #: Relative tolerance (|err| <= tol * (1 + |ref|)) of the kernels whose
-#: outputs are long sums: the grouped GEMM and WKV6.
+#: outputs are long sums: the grouped GEMM, WKV6 and the RG-LRU scan.
 SUM_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
 ROUNDS = 8
 MAX_BATCH, MAX_SEQ_LEN, PROMPT_LEN, NEW_TOKENS = 28, 128, 16, 8
@@ -83,7 +104,8 @@ MAX_BATCH, MAX_SEQ_LEN, PROMPT_LEN, NEW_TOKENS = 28, 128, 16, 8
 #: kernel once a layer and no per-token tail.
 PATHS = (("llama3.2-1b", PROMPT_LEN, PROMPT_LEN),
          ("olmoe-1b-7b", PROMPT_LEN, PROMPT_LEN),
-         ("rwkv6-3b", 64, 32))
+         ("rwkv6-3b", 64, 32),
+         ("recurrentgemma-9b", PROMPT_LEN, PROMPT_LEN))
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
@@ -98,12 +120,17 @@ KERNELS = {
                  "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
     "wkv6": ("src/repro_torch/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6/rwkv6.py:31"),
+    "rglru": ("src/repro_torch/csrc/rglru.cu",
+              "src/repro/kernels/rglru/rglru.py:31"),
 }
 #: Substrings of the port's CUDA kernel names (csrc/*.cu).
 PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel", "moe_gemm_",
-                     "wkv6_")
+                     "wkv6_", "rglru_")
 WKV6_LIBRARY_NOTE = ("no single PyTorch call computes the WKV6 recurrence "
                      "(no library kernel for it), so library_ms is null")
+RGLRU_LIBRARY_NOTE = ("no single PyTorch call computes a first-order linear "
+                      "recurrence (no library kernel for it), so library_ms "
+                      "is null")
 
 
 def fail(msg: str) -> None:
@@ -256,7 +283,7 @@ def kernel_checks(torch, ops):
               (2 * q.numel() + 2 * keys * kvh * d) * e + 8 * b,
               4 * keys * h * d, is_main)
 
-    def prefill_case(dtype_name, h, kvh, d, is_main):
+    def prefill_case(dtype_name, h, kvh, d, is_main, window=0):
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
         b, sq = MAX_BATCH, PROMPT_LEN
@@ -266,12 +293,16 @@ def kernel_checks(torch, ops):
         pos = torch.arange(sq, device=dev)
         mask = ((pos[None, :, None] >= pos[None, None, :])
                 & (pos[None, None, :] >= starts[:, None, None].long()))
+        if window:
+            mask = mask & (pos[None, None, :] > pos[None, :, None] - window)
         pairs = int(mask.sum())
-        check("flash_attention", dtype_name, (b, sq, kvh, h // kvh, d),
+        shape = (b, sq, kvh, h // kvh, d) + ((f"window {window}",)
+                                             if window else ())
+        check("flash_attention", dtype_name, shape,
               lambda: ops["flash_attention"].flash_attention(
-                  q, k, v, kv_start=starts),
+                  q, k, v, window=window, kv_start=starts),
               lambda: ops["flash_attention"].attention_ref(
-                  q, k, v, kv_start=starts),
+                  q, k, v, window=window, kv_start=starts),
               lambda: F.scaled_dot_product_attention(
                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                   attn_mask=mask[:, None], enable_gqa=True),
@@ -313,14 +344,44 @@ def kernel_checks(torch, ops):
               wkv6_flops(b, s_len, h, n, chunk), is_main, long_sums=True,
               compute_dtype="float32", library_note=WKV6_LIBRARY_NOTE)
 
+    def rglru_case(s_len, is_main):
+        rg = ops["rglru"]
+        b, w = MAX_BATCH, 4096
+        shape = (b, s_len, w)
+        f32 = torch.float32
+        # The model's decay range: log_a = -8 softplus(lambda) r with
+        # lambda from the reference's init and r a sigmoid gate.
+        u = torch.empty((w,), device=dev).uniform_(0.9, 0.999, generator=gen)
+        lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+        sets = [(-8.0 * F.softplus(lam) * torch.sigmoid(rnd(shape, f32)),
+                 rnd(shape, f32), rnd((b, w), f32)) for _ in range(4)]
+        # Calls take turns over 4 input sets (59 MB at the prefill shape,
+        # more than the 50 MB L2), so each reads its inputs from device
+        # memory, as the bound counts them.  The kernel overwrites its
+        # state, so it gets copies; the first call of each side is on set
+        # 0 from its h0.
+        kernel_sets = itertools.cycle([(la, bb, h0.clone())
+                                       for la, bb, h0 in sets])
+        plain_sets = itertools.cycle(sets)
+        plain = rg.rglru_step_ref if s_len == 1 else rg.rglru_assoc_ref
+        n = b * s_len * w
+        check("rglru", "float32", shape,
+              lambda: rg.rglru(*next(kernel_sets)),
+              lambda: plain(*next(plain_sets)), None,
+              3 * n * 4 + 2 * b * w * 4,
+              3 * n, is_main, long_sums=True,
+              library_note=RGLRU_LIBRARY_NOTE)
+
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
         is_bf16 = dtype_name == "bfloat16"
 
-        # RMSNorm: prefill rows (28 x 16) and decode rows (28), d 2048, and
-        # olmoe's qk-norm rows (28 x 16 tokens x 16 heads, 128 wide).
+        # RMSNorm: prefill rows (28 x 16) and decode rows (28) at llama's
+        # and olmoe's d 2048 and recurrentgemma's d 4096, and olmoe's
+        # qk-norm rows (28 x 16 tokens x 16 heads, 128 wide).
         for rows_shape in ((MAX_BATCH, PROMPT_LEN, 2048), (MAX_BATCH, 2048),
+                           (MAX_BATCH, PROMPT_LEN, 4096), (MAX_BATCH, 4096),
                            (MAX_BATCH, PROMPT_LEN, 16, 128)):
             width = rows_shape[-1]
             x, s = rnd(rows_shape, dt), rnd((width,), dt, 0.1)
@@ -344,9 +405,12 @@ def kernel_checks(torch, ops):
         decode_case(dtype_name, MAX_BATCH, MAX_SEQ_LEN, 16, 25, 16, 16, 128,
                     False)
 
-        # Prefill attention: 28 x 16 tokens with left pads, both geometries.
+        # Prefill attention: 28 x 16 tokens with left pads, the llama and
+        # olmoe geometries and recurrentgemma's (MQA at head_dim 256 under
+        # its 2048 window, which 16 tokens do not reach).
         prefill_case(dtype_name, 32, 8, 64, is_bf16)
         prefill_case(dtype_name, 16, 16, 128, False)
+        prefill_case(dtype_name, 16, 1, 256, False, window=2048)
 
         # Grouped expert GEMM at olmoe-1b-7b's products: decode gate/up and
         # down (64 experts x capacity 8) and prefill gate/up at batch 28
@@ -374,6 +438,11 @@ def kernel_checks(torch, ops):
         # step.  The kernel computes in fp32 whatever the input type.
         for s_len, chunk in ((64, 32), (1, 1)):
             wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1)
+
+    # The RG-LRU scan at recurrentgemma-9b's width (4096) and batch 28: the
+    # prompt's scan (16 tokens) and the decode step, in fp32.
+    for s_len in (PROMPT_LEN, 1):
+        rglru_case(s_len, s_len == 1)
     if failures:
         fail("kernel != plain version: " + "; ".join(failures))
     return main
@@ -383,12 +452,14 @@ def kernel_checks(torch, ops):
 # Phase 3: flash vs naive at model level, fp32
 # ---------------------------------------------------------------------------
 
-def _run_narrow(torch, rt, cfg, params, toks, mask, feed, steps, device):
-    """Prefill + `steps` decode steps on `device`; decode feeds `feed[i]`
-    when given, else appends the greedy token to `feed`.  Logits [steps+1,
-    B, V] on the CPU."""
+def _run_narrow(torch, rt, cfg, params, toks, mask, feed, steps, device,
+                max_len=None):
+    """Prefill + `steps` decode steps on `device` into a cache built for
+    `max_len` (default: the prompt + 16); decode feeds `feed[i]` when
+    given, else appends the greedy token to `feed`.  Logits [steps+1, B, V]
+    on the CPU."""
     b, plen = toks.shape
-    max_len = plen + 16
+    max_len = max_len or plen + 16
     dmask = torch.ones((b, max_len), dtype=torch.bool, device=device)
     dmask[:, :plen] = mask.to(device)
     bundle = rt.bundle_for(cfg)
@@ -475,7 +546,7 @@ def rwkv6_check(torch, rt):
         dtype=torch.float32)
     params = rt.bundle_for(cfg).init_params(0, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    _add_noise(torch, params, gen)
+    _add_noise(torch, params, gen, _RWKV6_NOISE)
     b, plen, steps = 4, 40, 4
     pads = torch.tensor([0, 3, 9, 30])
     rng = torch.Generator().manual_seed(1)
@@ -498,21 +569,66 @@ def rwkv6_check(torch, rt):
         fail(f"rwkv6: card and CPU logits differ by {diff}")
 
 
+def rglru_model_check(torch, rt):
+    """A narrow fp32 recurrentgemma over a left-padded 40-token prefill
+    into a 16-slot ring (the prefill rolls it) and 8 decode steps that wrap
+    it: flash (kernels) vs naive on the card, and flash on the card vs the
+    same weights on the CPU (plain versions)."""
+    import dataclasses
+    base = rt.rglru.RGLRUConfig(
+        name="recurrentgemma-narrow", n_layers=3, d_model=256, n_heads=16,
+        n_kv_heads=1, head_dim=256, d_ff=512, vocab_size=1024,
+        lru_width=256, sliding_window=16, dtype=torch.float32)
+    params = rt.bundle_for(base).init_params(0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    _add_noise(torch, params, gen, _RGLRU_NOISE)
+    b, plen, steps, max_len = 4, 40, 8, 64
+    pads = torch.tensor([0, 3, 9, 30])
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, base.vocab_size, (b, plen), generator=rng)
+    mask = torch.arange(plen)[None] >= pads[:, None]
+    toks = torch.where(mask, toks, torch.zeros_like(toks))
+    feed, logits = [], {}
+    for impl in ("naive", "flash"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        logits[impl] = _run_narrow(torch, rt, cfg, params, toks, mask, feed,
+                                   steps, "cuda", max_len)
+    on_cpu = _run_narrow(torch, rt, cfg, _tree_to(params, "cpu"), toks, mask,
+                         feed, steps, "cpu", max_len)
+    ring = min(max_len, base.sliding_window)
+    geo = (f"{base.n_layers} blocks {base.block_types}, d{base.d_model}, "
+           f"lru {base.width}, {base.n_heads}H/{base.n_kv_heads}KV x "
+           f"{base.head_dim}, window {base.sliding_window}, ring of {ring}")
+    for label, a, ref in (("flash-vs-naive on the card", logits["flash"],
+                           logits["naive"]),
+                          ("flash on the card (kernels) vs on the CPU "
+                           "(plain versions)", logits["flash"], on_cpu)):
+        diff = (a - ref).abs().max().item()
+        finite = bool(torch.isfinite(a).all().item())
+        say(f"model fp32 recurrentgemma narrow ({geo}) {label}, prefill "
+            f"{plen} + {steps} decode: max_abs_diff={diff:.3e} tol=1e-4 "
+            f"finite={finite}")
+        if not finite or not diff <= 1e-4:
+            fail(f"recurrentgemma: {label}: logits differ by {diff}")
+
+
 #: rwkv6 leaves the reference initialises to zero, given noise in the
 #: narrow check so that the mixes, decay base, bonus and norms all count.
 _RWKV6_NOISE = {"maa_x": 0.3, "maa_rkvwg": 0.3, "maa_k": 0.3, "maa_r": 0.3,
                 "decay_base": 2.5, "bonus": 0.5, "scale": 0.1, "bias": 0.1}
+#: The same for recurrentgemma: gate biases, conv bias, norm scales.
+_RGLRU_NOISE = {"b_a": 0.5, "b_i": 0.5, "conv_b": 0.1, "scale": 0.1}
 
 
-def _add_noise(torch, tree, gen, key=None):
+def _add_noise(torch, tree, gen, noise, key=None):
     if isinstance(tree, dict):
         for k, v in tree.items():
-            _add_noise(torch, v, gen, k)
+            _add_noise(torch, v, gen, noise, k)
     elif isinstance(tree, list):
         for v in tree:
-            _add_noise(torch, v, gen)
-    elif key in _RWKV6_NOISE:
-        tree.add_(_RWKV6_NOISE[key] * torch.randn(
+            _add_noise(torch, v, gen, noise)
+    elif key in noise:
+        tree.add_(noise[key] * torch.randn(
             tree.shape, generator=gen, device=tree.device, dtype=tree.dtype))
 
 
@@ -535,8 +651,18 @@ def weight_read_floor_ms(family, cfg, batch):
     step computes -- all of them, since decode capacity is at least top_k
     rows an expert).  rwkv6: every weight but the embedding table (its B
     rows only) and the recurrent state (WKV fp32, token shifts bf16) read
-    and written once."""
+    and written once.  recurrentgemma: every weight (the tied unembedding
+    reads the whole table), the attention caches read once, and the
+    recurrent state (`lru_h` fp32, `conv_tail` bf16) read and written
+    once."""
     d, e = cfg.d_model, 2   # bf16
+    if family == "rglru":
+        n_rec = cfg.n_recurrent
+        kv = (cfg.n_layers - n_rec) * batch * min(
+            MAX_SEQ_LEN, cfg.sliding_window) * cfg.n_kv_heads \
+            * cfg.head_dim * 2 * e
+        state = n_rec * batch * cfg.width * (4 + 3 * e)
+        return (cfg.n_params * e + kv + 2 * state) / HBM_BYTES_PER_S * 1e3
     head = cfg.vocab_size * d * e + batch * d * e
     if family == "rwkv6":
         tables = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
@@ -556,6 +682,13 @@ def weight_read_floor_ms(family, cfg, batch):
 
 def describe(family, cfg):
     """One line of a full-width config's shape."""
+    if family == "rglru":
+        return (f"{cfg.name} {cfg.n_layers} blocks ({cfg.n_recurrent} "
+                f"recurrent, {cfg.n_layers - cfg.n_recurrent} local "
+                f"attention) d_model={cfg.d_model} lru_width={cfg.width} "
+                f"{cfg.n_heads}H/{cfg.n_kv_heads}KV x {cfg.head_dim} "
+                f"window={cfg.sliding_window} d_ff={cfg.d_ff} (GeGLU) "
+                f"tied={cfg.tie_embeddings} attn_impl={cfg.attn_impl}")
     if family == "rwkv6":
         return (f"{cfg.name} {cfg.n_layers}L d_model={cfg.d_model} "
                 f"{cfg.n_heads}H x {cfg.head_dim} (attention-free) "
@@ -574,7 +707,7 @@ def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
     import dataclasses
     import numpy as np
     cfg = rt.configs.get(arch)
-    if rt.bundle_for(cfg).family == "transformer":
+    if rt.bundle_for(cfg).family in ("transformer", "rglru"):
         cfg = dataclasses.replace(cfg, attn_impl="flash")
     bundle = rt.bundle_for(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -656,6 +789,15 @@ def expected_launches(family, cfg, n_generate, prompt_len):
             n_generate * (head + prompt_len % cfg.chunk) + steps)
         return counts
     passes = n_generate + steps
+    if family == "rglru":
+        # One scan a recurrent block a pass; one prefill-attention launch an
+        # attention block a prefill; the windowed layers decode naive, as
+        # in the reference, so no decode-attention launch.
+        n_rec = cfg.n_recurrent
+        counts.update({"rglru": n_rec * passes,
+                       "flash_attention": (n_layers - n_rec) * n_generate,
+                       "rmsnorm": (2 * n_layers + 1) * passes})
+        return counts
     norms = 4 * n_layers + 1 if cfg.qk_norm else 2 * n_layers + 1
     counts.update({"decode_attention": n_layers * steps,
                    "flash_attention": n_layers * n_generate,
@@ -710,10 +852,12 @@ def main() -> None:
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rwkv6 import ops as wk_ops
     ops = {"rmsnorm": rms_ops, "decode_attention": dec_ops,
-           "flash_attention": fl_ops, "moe_gemm": mg_ops, "wkv6": wk_ops}
+           "flash_attention": fl_ops, "moe_gemm": mg_ops, "wkv6": wk_ops,
+           "rglru": rg_ops}
 
     # Phase 1
     smi = subprocess.run(
@@ -734,7 +878,7 @@ def main() -> None:
     from repro_torch.core.baselines import make_policy
     from repro_torch.core.controller import Controller
     from repro_torch.core.cost import CostModel
-    from repro_torch.models import rwkv6, transformer
+    from repro_torch.models import rglru, rwkv6, transformer
     from repro_torch.models.moe import MoEConfig
     from repro_torch.models.registry import bundle_for
     from repro_torch.platform import make_space
@@ -743,11 +887,12 @@ def main() -> None:
     rt = argparse.Namespace(
         configs=configs, make_policy=make_policy, Controller=Controller,
         CostModel=CostModel, transformer=transformer, rwkv6=rwkv6,
-        bundle_for=bundle_for,
+        rglru=rglru, bundle_for=bundle_for,
         make_space=make_space, energy=energy, MoEConfig=MoEConfig,
         EngineEnvironment=EngineEnvironment, InferenceEngine=InferenceEngine)
     model_check(torch, rt)
     rwkv6_check(torch, rt)
+    rglru_model_check(torch, rt)
 
     # Phases 4 and 5, once per main path
     totals = dict.fromkeys(ops, 0)

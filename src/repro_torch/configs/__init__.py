@@ -1,5 +1,5 @@
-"""Architecture configs of the port (llama3.2-1b, olmoe-1b-7b and rwkv6-3b
-of `repro.configs`).
+"""Architecture configs of the port (llama3.2-1b, olmoe-1b-7b, rwkv6-3b and
+recurrentgemma-9b of `repro.configs`).
 
 `get(name)` returns the full config; `get_smoke(name)` the reduced
 same-family config for CPU tests and the default engine environment."""
@@ -13,6 +13,7 @@ ALIASES: Dict[str, str] = {
     "llama3.2-1b": "llama32_1b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

@@ -172,7 +172,8 @@ cudaError_t launch_attention_d(const AttnParams& p, dim3 grid,
   return cudaGetLastError();
 }
 
-template <typename T, int NWARPS, int PPW>
+// WIDE adds head_dim 256, which only prefill attention is built for.
+template <typename T, int NWARPS, int PPW, bool WIDE>
 cudaError_t launch_attention_t(const AttnParams& p, int D, dim3 grid,
                                cudaStream_t stream) {
   switch (D) {
@@ -180,17 +181,25 @@ cudaError_t launch_attention_t(const AttnParams& p, int D, dim3 grid,
     case 64: return launch_attention_d<T, 2, NWARPS, PPW>(p, grid, stream);
     case 96: return launch_attention_d<T, 3, NWARPS, PPW>(p, grid, stream);
     case 128: return launch_attention_d<T, 4, NWARPS, PPW>(p, grid, stream);
+    // recurrentgemma's heads.  At 8 warps x 8 pairs the CTA stages 64 query
+    // rows of 1 KB plus a 32-key K/V chunk: ~129 KB of shared memory, so
+    // one CTA an SM, and 64 fp32 accumulators a lane.
+    case 256:
+      if constexpr (WIDE)
+        return launch_attention_d<T, 8, NWARPS, PPW>(p, grid, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int NWARPS, int PPW>
+template <int NWARPS, int PPW, bool WIDE = false>
 cudaError_t launch_attention(const AttnParams& p, int dtype, int D, dim3 grid,
                              cudaStream_t stream) {
   if (dtype == kFloat32)
-    return launch_attention_t<float, NWARPS, PPW>(p, D, grid, stream);
+    return launch_attention_t<float, NWARPS, PPW, WIDE>(p, D, grid, stream);
   if (dtype == kBFloat16)
-    return launch_attention_t<__nv_bfloat16, NWARPS, PPW>(p, D, grid, stream);
+    return launch_attention_t<__nv_bfloat16, NWARPS, PPW, WIDE>(p, D, grid,
+                                                                stream);
   return cudaErrorInvalidValue;
 }
 

@@ -56,6 +56,8 @@ extern "C" int flash_attention_launch(
   p.scale = scale;
   p.softcap = softcap;
   const dim3 grid(B * KVH, (Sq + p.rows_per_cta - 1) / p.rows_per_cta);
-  return static_cast<int>(repro::launch_attention<kWarps, kPairsPerWarp>(
-      p, dtype, D, grid, static_cast<cudaStream_t>(stream)));
+  // Wide: head_dim 256 (recurrentgemma) is built here, not for decode.
+  return static_cast<int>(
+      repro::launch_attention<kWarps, kPairsPerWarp, /*WIDE=*/true>(
+          p, dtype, D, grid, static_cast<cudaStream_t>(stream)));
 }

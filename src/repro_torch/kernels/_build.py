@@ -30,8 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Every kernel source of the port, by library name.
-KERNELS = ("decode_attention", "flash_attention", "moe_gemm", "rmsnorm",
-           "wkv6")
+KERNELS = ("decode_attention", "flash_attention", "moe_gemm", "rglru",
+           "rmsnorm", "wkv6")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +48,7 @@ SIGNATURES = {
                          _L, _L, _L, _L, _L, _L, _L, _L, _L,
                          _I, _I, _F, _F, _P]),
     "moe_gemm": ("moe_gemm_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "rglru": ("rglru_launch", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P]),
     "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _I, _L, _F, _P]),
     "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _L, _L, _L, _P]),

@@ -56,9 +56,9 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     if h % kvh or not 1 <= h // kvh <= MAX_GROUP:
         raise ValueError(f"flash_attention: H={h} must be a multiple of "
                          f"KVH={kvh} with at most {MAX_GROUP} heads a group")
-    if d not in (32, 64, 96, 128):
+    if d not in (32, 64, 96, 128, 256):
         raise ValueError(f"flash_attention: head_dim {d} not in "
-                         "(32, 64, 96, 128)")
+                         "(32, 64, 96, 128, 256)")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: q, k, v need unit last-dim "
                          "strides")

@@ -12,12 +12,14 @@ analytical board model applied to measured wall time (modelled, not
 measured on the card).  The reference's search/validate/tpu/fleet modes
 are not ported yet.
 
-Usage (from the repository root; `--arch` is llama3.2-1b, olmoe-1b-7b or
-rwkv6-3b):
+Usage (from the repository root; `--arch` is llama3.2-1b, olmoe-1b-7b,
+rwkv6-3b or recurrentgemma-9b):
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch llama3.2-1b --rounds 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch rwkv6-3b --rounds 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+        --arch recurrentgemma-9b --rounds 8
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Shared model components of the port (the parts of `repro.models.common`
-that llama3.2-1b, olmoe-1b-7b and rwkv6-3b reach): RMSNorm, LayerNorm,
-rotary embeddings, GQA attention with optional qk-norm, the native KV
-cache, cached decode attention, prefill into the cache, the gated MLP,
-tied or untied embeddings, the loss, and the conversion of a JAX params
-tree.
+that llama3.2-1b, olmoe-1b-7b, rwkv6-3b and recurrentgemma-9b reach):
+RMSNorm, LayerNorm, rotary embeddings, GQA attention with optional qk-norm,
+the native KV cache as a plain or a ring (sliding-window) buffer, cached
+decode attention, prefill into the cache, the gated MLP (SwiGLU and GeGLU),
+tied or untied embeddings with the optional sqrt(d) scale, the loss, and
+the conversion of a JAX params tree.
 
 Parameters are plain nested dicts of tensors with the reference's key
 names and its `[in, out]` weight layout (``x @ w``).  Dtype policy: params
@@ -13,14 +14,15 @@ KV caches are written in place (`cache["k"][:, pos] = ...`) instead of
 returned as fresh copies, which saves a full cache copy per layer.  A
 pooled cache therefore carries a previous call's entries; that is safe
 because every position a call reads was written by the same call or is
-masked (positions past `pos`, left-pad slots before `kv_start`), and every
-entry ever written is finite, so a masked weight of exactly 0 times it
-stays 0.
+masked (positions past `pos`, left-pad slots before `kv_start`, ring
+slots whose global position would be negative), and every entry ever
+written is finite, so a masked weight of exactly 0 times it stays 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -230,29 +232,32 @@ def kv_start_of(pad_mask: Tensor) -> Tensor:
 
 
 def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
-                     cache: Params, pos: int,
+                     cache: Params, pos: int, ring: bool = False,
                      pad_mask: Optional[Tensor] = None
                      ) -> Tuple[Tensor, Params]:
     """Decode-step attention: x [B,1,D], cache k/v [B,S,KVH,HD], pos (the
     current token's global position).  The new K/V are written into the
-    cache at `pos` in place.  `pad_mask` ([B, P] bool, True = real)
-    invalidates left-pad prompt slots; positions >= P are always valid.
-    Returns (attn output [B,1,D], cache).
+    cache in place, at `pos`, or with `ring=True` at slot `pos % S` of a
+    ring buffer of S == sliding_window slots (RoPE is applied before the
+    write, so positions stay global).  `pad_mask` ([B, P] bool, True =
+    real) invalidates left-pad prompt slots; positions >= P are always
+    valid.  Returns (attn output [B,1,D], cache).
 
-    With `attn_impl == "flash"` on a plain causal layer the attention runs
-    through the decode-attention kernel over the window
-    [kv_start, pos + 1); otherwise the naive masked softmax below."""
+    With `attn_impl == "flash"` on a plain causal layer (no ring, no
+    sliding window, no softcap) the attention runs through the
+    decode-attention kernel over the window [kv_start, pos + 1); otherwise
+    the naive masked softmax below, as in the reference."""
     b = x.shape[0]
     s_cache = cache["k"].shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, spec, x, positions)
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
+    slot = pos % s_cache if ring else pos
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
     k, v = cache["k"], cache["v"]
 
-    # The reference's kernel route (`common.py:344-345`); the port has no
-    # ring caches, so `not ring` always holds.
-    if (spec.attn_impl == "flash" and spec.sliding_window == 0
+    # The reference's kernel route (`common.py:344-345`).
+    if (spec.attn_impl == "flash" and not ring and spec.sliding_window == 0
             and spec.logit_softcap == 0.0):
         kv_start = None if pad_mask is None else kv_start_of(pad_mask)
         ctx = decode_attention(q[:, 0], k, v, pos + 1, kv_start,
@@ -260,18 +265,26 @@ def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
         return attn_out(params, spec, ctx.reshape(b, 1, -1)), cache
 
     idx = torch.arange(s_cache, device=x.device)
-    mask = idx <= pos
-    if spec.sliding_window > 0:
-        mask = mask & (idx > pos - spec.sliding_window)
+    if ring:
+        # Slot i holds global position pos - ((pos - i) mod S); it is valid
+        # iff that position is inside the window and not negative.
+        kpos = pos - torch.remainder(pos - idx, s_cache)
+        mask = kpos >= max(0, pos - s_cache + 1)
+    else:
+        kpos = idx
+        mask = idx <= pos
+        if spec.sliding_window > 0:
+            mask = mask & (idx > pos - spec.sliding_window)
     mask = mask[None, None, :]
     if pad_mask is not None:
-        mask = mask & _pad_valid_at(pad_mask, idx)[:, None, :]
+        mask = mask & _pad_valid_at(pad_mask, kpos)[:, None, :]
     ctx = mha_attend(q, k, v, mask.expand(b, 1, s_cache), spec)
     return attn_out(params, spec, ctx), cache
 
 
 def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
-                       cache: Params, pad_mask: Optional[Tensor] = None,
+                       cache: Params, ring: bool = False,
+                       pad_mask: Optional[Tensor] = None,
                        pos_offset: Optional[int] = None
                        ) -> Tuple[Tensor, Params]:
     """Prefill: write S prompt tokens into the cache (in place, at
@@ -280,13 +293,30 @@ def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
     so ragged batches match their unpadded logits.  `pos_offset` shifts
     the prompt to global positions [pos_offset, pos_offset + S) for RoPE
     and the cache write; attention itself is over the prompt alone, so the
-    attention's query offset stays 0."""
+    attention's query offset stays 0.
+
+    A ring cache (`ring=True`, S_cache == sliding_window) keeps the last
+    `window` tokens, token g in slot g % window.  A prompt of S >= window
+    overwrites the whole ring; a shorter one at an offset is written at 0
+    and the row rolled by `pos_offset % window`, which, as in the
+    reference, assumes a fresh (all-zero) cache row."""
     b, s, _ = x.shape
+    s_cache = cache["k"].shape[1]
     off = 0 if pos_offset is None else int(pos_offset)
     positions = torch.arange(s, device=x.device)[None].expand(b, s) + off
     q, k, v = _project_qkv(params, spec, x, positions)
-    cache["k"][:, off:off + s] = k.to(cache["k"].dtype)
-    cache["v"][:, off:off + s] = v.to(cache["v"].dtype)
+    if ring and s >= s_cache:
+        w = s_cache
+        start = (off + s - w) % w
+        for name, new in (("k", k), ("v", v)):
+            cache[name].copy_(torch.roll(new[:, s - w:], start, dims=1))
+    elif ring and pos_offset is not None:
+        for name, new in (("k", k), ("v", v)):
+            cache[name][:, :s] = new.to(cache[name].dtype)
+            cache[name].copy_(torch.roll(cache[name], off % s_cache, dims=1))
+    else:
+        cache["k"][:, off:off + s] = k.to(cache["k"].dtype)
+        cache["v"][:, off:off + s] = v.to(cache["v"].dtype)
     if spec.attn_impl == "flash":
         kv_start = None if pad_mask is None else kv_start_of(pad_mask)
         ctx = flash_attention(q, k, v, scale=spec.query_scale, causal=True,
@@ -316,7 +346,9 @@ def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
 # MLP, embedding, loss
 # ---------------------------------------------------------------------------
 
-ACTS = {"silu": F.silu}
+ACTS = {"silu": F.silu,
+        # jax.nn.gelu's default (approximate=True), which GeGLU uses.
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
@@ -327,13 +359,25 @@ def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 
 
 def gated_mlp(params: Params, x: Tensor, act: str = "silu") -> Tensor:
-    """SwiGLU."""
+    """SwiGLU (`act="silu"`) or GeGLU (`act="gelu_tanh"`)."""
     h = ACTS[act](x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
 
 
-def embed(params: Params, tokens: Tensor) -> Tensor:
-    return params["embedding"][tokens]
+def embed(params: Params, tokens: Tensor, scale_by_sqrt_dim: bool = False
+          ) -> Tensor:
+    x = params["embedding"][tokens]
+    if scale_by_sqrt_dim:
+        x = x * _sqrt_dim(x.shape[-1], x.dtype)
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _sqrt_dim(d: int, dtype: torch.dtype) -> float:
+    """sqrt(d) rounded to `dtype`, as the reference's scale tensor is, held
+    as a Python float: the product of two values of `dtype` is exact in
+    fp32 and rounded once, as the reference's is, with no device copy."""
+    return float(torch.tensor(math.sqrt(d), dtype=dtype))
 
 
 def unembed(params: Params, x: Tensor, tied: bool = True) -> Tensor:

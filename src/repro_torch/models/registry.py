@@ -1,5 +1,5 @@
-"""Uniform model API of the port (the transformer and rwkv6 families of
-`repro.models.registry`).
+"""Uniform model API of the port (the transformer, rwkv6 and rglru families
+of `repro.models.registry`).
 
 A `ModelBundle` exposes the family-agnostic surface the serving engine
 and tests consume:
@@ -16,13 +16,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rglru, rwkv6, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: Any
-    family: str            # "transformer" | "rwkv6"
+    family: str            # "transformer" | "rwkv6" | "rglru"
     module: Any
 
     def init_params(self, seed: int = 0, device=None):
@@ -41,12 +41,13 @@ class ModelBundle:
         return self.module.decode_step(self.cfg, params, token, cache, pos,
                                        **kw)
 
-    @property
-    def recurrent(self) -> bool:
-        """The cache is a recurrent state that prefill starts from and
-        updates in place, so a reused cache must be zeroed first (a KV
-        cache needs no reset: stale entries are masked or rewritten)."""
-        return self.family in _RECURRENT
+    def zero_state(self, cache) -> None:
+        """Zero the recurrent part of a reused cache in place: the state
+        prefill starts from and updates (rwkv6: all of it; rglru: `lru_h`
+        and `conv_tail`; the transformer: nothing, since stale KV entries
+        are masked or rewritten)."""
+        for key in self.module.STATE_KEYS:
+            cache[key].zero_()
 
     @property
     def name(self) -> str:
@@ -57,12 +58,12 @@ class ModelBundle:
         return self.cfg.n_params
 
 
-_FAMILY_MODULES = {"transformer": transformer, "rwkv6": rwkv6}
+_FAMILY_MODULES = {"transformer": transformer, "rwkv6": rwkv6,
+                   "rglru": rglru}
 
 _FAMILY_OF_CONFIG = {transformer.TransformerConfig: "transformer",
-                     rwkv6.RWKV6Config: "rwkv6"}
-
-_RECURRENT = frozenset({"rwkv6"})
+                     rwkv6.RWKV6Config: "rwkv6",
+                     rglru.RGLRUConfig: "rglru"}
 
 
 def bundle_for(cfg) -> ModelBundle:

@@ -46,6 +46,9 @@ from repro_torch.models import common
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 
+#: The recurrent state a reused cache zeroes before a new prompt: all of it.
+STATE_KEYS = ("tm_shift", "cm_shift", "wkv")
+
 
 @dataclasses.dataclass(frozen=True)
 class RWKV6Config:

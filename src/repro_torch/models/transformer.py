@@ -39,6 +39,10 @@ from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 
+#: The recurrent state a reused cache zeroes before a new prompt: none (a
+#: KV cache needs no reset: stale entries are masked or rewritten).
+STATE_KEYS = ()
+
 
 #: Reference fields whose paths are not ported, with the one value the port
 #: takes (the reference's default).

@@ -20,10 +20,12 @@ runs one batch through a model and turns the measured wall time into an
   previous call's entries: every position a call reads was written by the
   same call (prefill writes all of [0, L), decode writes `pos` before
   attending to it) or is masked out (positions past `pos`; left-pad
-  slots before `kv_start`), so stale entries never reach an output.  A
-  recurrent state (rwkv6) is read whole by prefill, so a pooled one is
-  zeroed before each prompt: every prefill starts from a zero state, as
-  in the reference, whose functional pool is never written.
+  slots before `kv_start`, ring slots of negative position), so stale
+  entries never reach an output.  A recurrent state (rwkv6's, and
+  recurrentgemma's `lru_h` and `conv_tail`) is read whole by prefill, so
+  a pooled one is zeroed before each prompt: every prefill starts from a
+  zero state, as in the reference, whose functional pool is never
+  written.
 
 Left-padding batches ragged prompts: all sequences share position indices
 and a boolean pad mask (`attn_mask`) keeps pad slots out of attention, so
@@ -127,9 +129,8 @@ class InferenceEngine:
             cache = self.bundle.init_cache(batch, self.max_seq_len,
                                            self.device)
             self._cache_pool[batch] = cache
-        elif self.bundle.recurrent:
-            for t in cache.values():
-                t.zero_()
+        else:
+            self.bundle.zero_state(cache)
         return cache
 
     @property

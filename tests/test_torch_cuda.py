@@ -9,7 +9,8 @@ Tolerances: 2e-5 in fp32, 2e-2 in bf16 (tests/test_kernels.py); the
 grouped GEMM, a sum of 1024-2048 products an output, 1e-4 in fp32; WKV6,
 whose outputs are sums over C·N terms and over the carried state, 1e-4 in
 fp32 (its kernel computes in fp32 from bf16 inputs too, so bf16 is held to
-2e-2).
+2e-2); the RG-LRU scan (fp32 only), whose state carries every earlier step
+at another rounding order than the plain versions', 1e-4.
 """
 
 import pytest
@@ -18,6 +19,7 @@ import torch
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fl_ops
 from repro_torch.kernels.moe_gemm import ops as mg_ops
+from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rwkv6 import ops as wk_ops
 from repro_torch.models import moe
@@ -249,3 +251,72 @@ def test_wkv6_rejects_what_the_kernel_cannot_take(rnd):
     with pytest.raises(ValueError, match="strides"):
         wk_ops.wkv6(r, k, v, logw.transpose(1, 2).contiguous()
                     .transpose(1, 2), u, st, chunk=8)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_kernels_at_recurrentgemma_geometry(rnd, dtype):
+    """16 query heads over 1 KV head (MQA) at head_dim 256: prefill with
+    left pads under recurrentgemma's window (inert at 16 tokens) and under
+    a window of 5 that bites over 40 tokens."""
+    dt, tol = DTYPES[dtype]
+    before = fl_ops.launches
+    for b, sq, window in ((28, 16, 2048), (3, 40, 5)):
+        q = rnd((b, sq, 16, 256), dt)
+        k, v = rnd((b, sq, 1, 256), dt), rnd((b, sq, 1, 256), dt)
+        starts = torch.arange(b, device="cuda", dtype=torch.int32) % 8
+        out = fl_ops.flash_attention(q, k, v, window=window, kv_start=starts)
+        torch.testing.assert_close(
+            out, fl_ops.attention_ref(q, k, v, window=window,
+                                      kv_start=starts), rtol=tol, atol=tol)
+        assert bool(torch.isfinite(out).all())
+    assert fl_ops.launches == before + 2
+
+
+def _rglru_inputs(rnd, b, s, w, width=None):
+    """log_a (the model's range: -8 softplus(lambda) sigmoid(.)) and b as
+    views of [B, S, width] tensors when `width` is given, and a nonzero
+    state."""
+    shape = (b, s, width or w)
+    log_a = -0.1 * torch.sigmoid(rnd(shape, torch.float32)) \
+        - 1e-3 * rnd(shape, torch.float32).abs()
+    bb = rnd(shape, torch.float32)
+    return log_a[..., :w], bb[..., :w], rnd((b, w), torch.float32)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("s", [16, 1, 37])
+def test_rglru_kernel_matches_plain(rnd, s):
+    """recurrentgemma-9b's prefill (S 16) and decode (S 1) shapes at batch
+    28 and an odd length, from a nonzero state: against the sequential
+    oracle and the form the CPU path runs; strided inputs at the odd
+    length; the state is written in place."""
+    tol = dict(rtol=1e-4, atol=1e-4)
+    b, w = (28, 4096) if s != 37 else (3, 200)
+    log_a, bb, h0 = _rglru_inputs(rnd, b, s, w,
+                                  width=None if s != 37 else 232)
+    seq_h, seq_last = rg_ops.rglru_scan_ref(log_a, bb, h0)
+    plain = rg_ops.rglru_step_ref if s == 1 else rg_ops.rglru_assoc_ref
+    pl_h, pl_last = plain(log_a, bb, h0)
+    state = h0.clone()
+    before = rg_ops.launches
+    h, out = rg_ops.rglru(log_a, bb, state)
+    torch.cuda.synchronize()
+    assert out is state and rg_ops.launches == before + 1
+    for ref_h, ref_last in ((seq_h, seq_last), (pl_h, pl_last)):
+        torch.testing.assert_close(h, ref_h, **tol)
+        torch.testing.assert_close(state, ref_last, **tol)
+
+
+@pytest.mark.requires_cuda
+def test_rglru_rejects_what_the_kernel_cannot_take(rnd):
+    log_a, bb, h0 = _rglru_inputs(rnd, 2, 8, 64)
+    with pytest.raises(TypeError):
+        rg_ops.rglru(log_a, bb.bfloat16(), h0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rg_ops.rglru(log_a, bb, h0.cpu())
+    with pytest.raises(ValueError, match="state"):
+        rg_ops.rglru(log_a, bb, rnd((2, 65), torch.float32)[:, :64])
+    with pytest.raises(ValueError, match="strides"):
+        rg_ops.rglru(log_a, bb.transpose(1, 2).contiguous().transpose(1, 2),
+                     h0)
