@@ -9,7 +9,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      kernel from `src/repro_torch/csrc` (one nvcc per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, in bf16
      and fp32, at the shapes the four engine paths give it (llama3.2-1b,
-     olmoe-1b-7b, rwkv6-3b and recurrentgemma-9b geometry), with its device
+     olmoe-1b-7b, rwkv6-3b and recurrentgemma-9b geometry), decode
+     attention also over a 4096-slot cache at batch 4 (split-KV plus the
+     combine kernel) and 28, and the grouped GEMM also at olmoe's prefill
+     down product, at batch 4's 32 rows an expert and at 300 (two row
+     blocks), with its device
      time (CUDA events
      over a primed stream, median of repeats), its per-call time when the
      host launches the calls (`call_ms`: launch overhead included), the plain
@@ -19,10 +23,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      time the card could
      take (bytes over 3.35 TB/s or operations over the peak of the type
      the kernel computes in, whichever is larger).  Tolerances: 2e-2 in
-     bf16, 2e-5 in fp32 (max abs error); the grouped GEMM, whose outputs
-     are sums over K = 1024-2048 products, and WKV6 (y and the final state,
-     sums over C·N terms and the carried state), 2e-2 / 1e-4 as
-     |err| <= tol * (1 + |ref|).  WKV6 runs at rwkv6-3b's prefill (B 28,
+     bf16, 2e-5 in fp32 (max abs error; over the 4096-slot cache, whose
+     outputs are small, as |err| <= tol * max|ref|); the grouped GEMM,
+     whose outputs are sums over K = 1024-2048 products, and WKV6 (y and
+     the final state, sums over C·N terms and the carried state), 2e-2 /
+     1e-4 as |err| <= tol * (1 + |ref|).  WKV6 runs at rwkv6-3b's prefill (B 28,
      S 64, H 40, N 64, chunk 32) and decode (S 1, chunk 1) shapes, from a
      nonzero state.  The RG-LRU scan (fp32 only: the recurrence's inputs
      and state are fp32 in the model) runs at recurrentgemma-9b's prefill
@@ -66,8 +71,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      wall time: modelled, not measured on this card;
   5. after each path, its launch counters equal what the path implies
      (counters set to 0 just before the path and read just after; every
-     kernel off the path at 0), then a torch.profiler breakdown of one more
-     full-width generate (kernel time by name, device busy share).
+     kernel off the path at 0; the 128-slot caches never launch decode
+     attention's combine kernel), then a torch.profiler breakdown of one
+     more full-width generate (kernel time by name, device busy share);
+  6. after llama3.2-1b's path, one profiled generate on a second engine
+     with the same params over a 4096-slot cache (batch 4, 4000-token
+     prompts): decode attention splits the KV axis there, and the launch
+     counts of that generate must show the combine kernel once a layer a
+     decode step.
 
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the four
@@ -125,7 +136,12 @@ KERNELS = {
 }
 #: Substrings of the port's CUDA kernel names (csrc/*.cu).
 PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel", "moe_gemm_",
-                     "wkv6_", "rglru_")
+                     "wkv6_", "rglru_", "decode_attention_split",
+                     "decode_attention_combine")
+#: The long-cache generate of phase 6: llama3.2-1b at batch 4 over a
+#: 4096-slot cache (4000-token prompts), where decode attention splits the
+#: KV axis across CTAs and merges the partials in a second kernel.
+LONG_BATCH, LONG_SEQ_LEN, LONG_PROMPT = 4, 4096, 4000
 WKV6_LIBRARY_NOTE = ("no single PyTorch call computes the WKV6 recurrence "
                      "(no library kernel for it), so library_ms is null")
 RGLRU_LIBRARY_NOTE = ("no single PyTorch call computes a first-order linear "
@@ -224,15 +240,21 @@ def kernel_checks(torch, ops):
 
     def check(name, dtype_name, shape, kernel, plain, library, nbytes,
               flops, is_main, long_sums=False, compute_dtype=None,
-              library_note=None):
+              library_note=None, to_max_ref=False):
         out, ref = flat(kernel()), flat(plain())
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         err = diff.max().item()
         # Long sums are held as |err| <= tol * (1 + |ref|): one bf16
-        # rounding step of a GEMM output of magnitude 4-8 is 0.03.
-        scaled = (diff / (1 + ref.abs())).max().item() if long_sums \
-            else err
+        # rounding step of a GEMM output of magnitude 4-8 is 0.03.  Small
+        # outputs (attention over thousands of keys, RMS ~0.03) are held
+        # as |err| <= tol * max|ref|.
+        if long_sums:
+            scaled = (diff / (1 + ref.abs())).max().item()
+        elif to_max_ref:
+            scaled = err / ref.abs().max().item()
+        else:
+            scaled = err
         finite = bool(torch.isfinite(out).all().item())
         (ms, call_ms), (plain_ms, _) = time_ms(kernel), time_ms(plain)
         lib_ms = time_ms(library)[0] if library is not None else None
@@ -249,6 +271,7 @@ def kernel_checks(torch, ops):
             f"bytes={int(nbytes)} flops={int(flops)} "
             f"max_abs_err={err:.3e}"
             + (f" err_over_1_plus_ref={scaled:.3e}" if long_sums else "")
+            + (f" err_over_max_ref={scaled:.3e}" if to_max_ref else "")
             + f" tol={tol:g} finite={finite}")
         if not finite or not scaled <= tol:
             failures.append(f"{name} {dtype_name} {shape}: err={scaled} "
@@ -281,7 +304,7 @@ def kernel_checks(torch, ops):
               lambda: F.scaled_dot_product_attention(
                   qt, kt, vt, attn_mask=mask, enable_gqa=True),
               (2 * q.numel() + 2 * keys * kvh * d) * e + 8 * b,
-              4 * keys * h * d, is_main)
+              4 * keys * h * d, is_main, to_max_ref=s_len == LONG_SEQ_LEN)
 
     def prefill_case(dtype_name, h, kvh, d, is_main, window=0):
         dt = getattr(torch, dtype_name)
@@ -396,10 +419,15 @@ def kernel_checks(torch, ops):
 
         # Decode attention: llama (32/8 heads x 64) at batch 4 and 28 over
         # the engine's 128-slot cache (a layer slice of the stacked cache)
-        # and one long cache; olmoe (16/16 x 128) at batch 28.
+        # and over a full 4096-slot cache (batch 4: 8 KV splits and the
+        # combine kernel; batch 28: one split); olmoe (16/16 x 128) at
+        # batch 28.
         for b, s_len, lo, hi in ((4, MAX_SEQ_LEN, 16, 25),
                                  (MAX_BATCH, MAX_SEQ_LEN, 16, 25),
-                                 (4, 4096, 4096, 4097)):
+                                 (4, LONG_SEQ_LEN, LONG_SEQ_LEN,
+                                  LONG_SEQ_LEN + 1),
+                                 (MAX_BATCH, LONG_SEQ_LEN, LONG_SEQ_LEN,
+                                  LONG_SEQ_LEN + 1)):
             decode_case(dtype_name, b, s_len, lo, hi, 32, 8, 64,
                         is_bf16 and b == MAX_BATCH and s_len == MAX_SEQ_LEN)
         decode_case(dtype_name, MAX_BATCH, MAX_SEQ_LEN, 16, 25, 16, 16, 128,
@@ -413,11 +441,16 @@ def kernel_checks(torch, ops):
         prefill_case(dtype_name, 16, 1, 256, False, window=2048)
 
         # Grouped expert GEMM at olmoe-1b-7b's products: decode gate/up and
-        # down (64 experts x capacity 8) and prefill gate/up at batch 28
-        # (capacity 8 per row, 224 rows an expert).  Weights scaled as
-        # moe_init scales them (truncated normal / sqrt(K)).
+        # down (64 experts x capacity 8), prefill gate/up and down at batch
+        # 28 (capacity 8 per row, 224 rows an expert), prefill gate/up
+        # at batch 4 (32 rows) and at 300 rows an expert (a longer prompt's
+        # capacity: past 256 rows the bf16 kernel takes a second row block
+        # and reads w again).  Weights scaled as moe_init scales them
+        # (truncated normal / sqrt(K)).
         for c, k_dim, n_dim in ((8, 2048, 1024), (8, 1024, 2048),
-                                (MAX_BATCH * 8, 2048, 1024)):
+                                (MAX_BATCH * 8, 2048, 1024),
+                                (MAX_BATCH * 8, 1024, 2048),
+                                (4 * 8, 2048, 1024), (300, 2048, 1024)):
             x = rnd((64, c, k_dim), dt)
             wf = torch.empty((64, k_dim, n_dim), device=dev)
             torch.nn.init.trunc_normal_(wf, std=1.0, a=-2.0, b=2.0,
@@ -743,8 +776,7 @@ def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
             not bool(torch.isfinite(logits).all().item()):
         fail(f"{arch}: full-width prefill logits are not finite")
 
-    for m in ops.values():
-        m.launches = 0
+    reset_counts(ops)
     space = rt.make_space(f"engine/{arch}")
     cm = rt.CostModel(alpha=0.5)
     ref_obs = env.pull(space.values(space.corner()), 0)
@@ -752,7 +784,7 @@ def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
     policy = rt.make_policy("camel", prior_mu=1.0, prior_sigma=0.1)
     res = rt.Controller(space, policy, cm, seed=0).run(env, ROUNDS)
     torch.cuda.synchronize()
-    counts = {name: m.launches for name, m in ops.items()}
+    counts = read_counts(ops)
 
     pulls = [("ref", space.values(space.corner()), ref_obs)] + \
         [(r.t, r.knobs, r.obs) for r in res.records]
@@ -775,12 +807,27 @@ def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
     return counts, len(pulls), cfg, engine, warm
 
 
+def reset_counts(ops):
+    for m in ops.values():
+        m.launches = 0
+    ops["decode_attention"].combine_launches = 0
+
+
+def read_counts(ops):
+    """Each kernel's launches, and decode attention's combine launches."""
+    counts = {name: m.launches for name, m in ops.items()}
+    counts["decode_attention_combine"] = \
+        ops["decode_attention"].combine_launches
+    return counts
+
+
 def expected_launches(family, cfg, n_generate, prompt_len):
     """Launches one path must make over `n_generate` generate calls (one
     prefill of `prompt_len` tokens and NEW_TOKENS decode steps each)."""
     n_layers = cfg.n_layers
     steps = n_generate * NEW_TOKENS
     counts = dict.fromkeys(KERNELS, 0)
+    counts["decode_attention_combine"] = 0     # 128-slot caches: one split
     if family == "rwkv6":
         # A layer's prefill: one chunked call over the prompt's whole
         # chunks, one call a tail token; then one call a decode step.
@@ -837,6 +884,42 @@ def profile_generate(torch, engine, prompts):
             say(f"kernel_in_path {engine.bundle.name} {ev.key[:70]}: "
                 f"launches={ev.count} device_us_per_launch="
                 f"{ev.self_device_time_total / ev.count:.3f}")
+
+
+def long_cache_generate(torch, rt, ops, engine, cfg):
+    """One profiled generate of the full-width llama3.2-1b (the params
+    phase 4a made) on a second engine over a 4096-slot cache: LONG_BATCH
+    prompts of LONG_PROMPT tokens and NEW_TOKENS decode steps.  Decode
+    attention there splits the KV axis and runs the combine kernel once a
+    layer a step; the launch counts of that generate must say so."""
+    import numpy as np
+    long_engine = rt.InferenceEngine(engine.bundle, engine.params,
+                                     max_batch=LONG_BATCH,
+                                     max_seq_len=LONG_SEQ_LEN,
+                                     prompt_bucket=PROMPT_LEN, device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
+               for _ in range(LONG_BATCH)]
+    toks, st = long_engine.generate(prompts, NEW_TOKENS)  # warm-up
+    if toks.shape != (LONG_BATCH, NEW_TOKENS) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"long cache: generate returned bad tokens {toks.shape}")
+    dec = ops["decode_attention"]
+    plan = dec.split_plan(LONG_BATCH, cfg.n_kv_heads, LONG_SEQ_LEN,
+                          dec.sm_count(torch.device("cuda", 0)))
+    say(f"long cache {cfg.name}: batch {LONG_BATCH}, prompts of "
+        f"{LONG_PROMPT} tokens, cache {LONG_SEQ_LEN} slots, split plan "
+        f"{plan}: prefill_s={st.prefill_s:.6f} decode_s={st.decode_s:.6f} "
+        f"decode_step_ms={1e3 * st.decode_s / NEW_TOKENS:.4f}")
+    reset_counts(ops)
+    profile_generate(torch, long_engine, prompts)
+    counts = read_counts(ops)
+    expected = expected_launches("transformer", cfg, 1, LONG_PROMPT)
+    expected["decode_attention_combine"] = cfg.n_layers * NEW_TOKENS
+    say(f"launch counts long cache {cfg.name} over 1 generate call "
+        f"({NEW_TOKENS} decode steps): {counts} expected {expected}")
+    if counts != expected:
+        fail(f"long cache: launch counts {counts} != expected {expected}")
 
 
 def main() -> None:
@@ -909,6 +992,8 @@ def main() -> None:
         for name in totals:
             totals[name] += counts[name]
         profile_generate(torch, engine, prompts)
+        if arch == "llama3.2-1b":
+            long_cache_generate(torch, rt, ops, engine, cfg)
         del engine
         torch.cuda.empty_cache()
 

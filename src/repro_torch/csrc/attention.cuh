@@ -1,4 +1,4 @@
-// Blocked online-softmax attention shared by the decode and prefill kernels.
+// Blocked online-softmax attention of the prefill kernel (flash_attention.cu).
 //
 // One CTA owns one (batch, KV head) and a block of query rows; the G query
 // heads of that KV head and all of the block's rows form the CTA's
@@ -13,8 +13,7 @@
 //
 // Masking: key j is valid for a query at position qpos iff
 //   kv_start[b] <= j < Sk, and (causal) j <= qpos, and (window) j > qpos - W.
-// Prefill puts row i at qpos = i; decode puts its single row at
-// qpos = kv_len[b] - 1, which reduces the rule to [kv_start, kv_len).
+// Row i of the prompt sits at qpos = i.
 // Scores are masked by select against a finite sentinel and the weights of
 // masked keys are selected to 0, so a row with no valid key (a left-pad
 // query row in prefill) ends with l = 0 and writes acc / max(l, 1e-30) = 0:
@@ -34,7 +33,6 @@ struct AttnParams {
   const void* v;
   void* o;
   const int* kv_start;  // [B] first valid key, or nullptr (= 0)
-  const int* kv_len;    // [B] exclusive end; non-null selects decode mode
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -65,9 +63,8 @@ __global__ void __launch_bounds__(NWARPS * 32)
   const int lane = threadIdx.x & 31;
 
   const int start = p.kv_start != nullptr ? max(p.kv_start[b], 0) : 0;
-  const int qbase = p.kv_len != nullptr ? p.kv_len[b] - 1 : 0;
-  const int qlo = qbase + row0;
-  const int qhi = qbase + row0 + rows - 1;
+  const int qlo = row0;
+  const int qhi = row0 + rows - 1;
   int kbeg = start;
   if (p.window > 0) kbeg = max(kbeg, qlo - p.window + 1);
   const int kend = p.causal ? min(p.Sk, qhi + 1) : p.Sk;
@@ -113,7 +110,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
     for (int t = 0; t < PPW; ++t) {
       const int pr = warp + NWARPS * t;
       if (pr >= npairs) break;  // warp-uniform
-      const int qpos = qbase + row0 + pr / G;
+      const int qpos = row0 + pr / G;
       bool valid = key < kend && key >= start;
       if (p.causal) valid = valid && key <= qpos;
       if (p.window > 0) valid = valid && key > qpos - p.window;
@@ -172,8 +169,7 @@ cudaError_t launch_attention_d(const AttnParams& p, dim3 grid,
   return cudaGetLastError();
 }
 
-// WIDE adds head_dim 256, which only prefill attention is built for.
-template <typename T, int NWARPS, int PPW, bool WIDE>
+template <typename T, int NWARPS, int PPW>
 cudaError_t launch_attention_t(const AttnParams& p, int D, dim3 grid,
                                cudaStream_t stream) {
   switch (D) {
@@ -184,22 +180,19 @@ cudaError_t launch_attention_t(const AttnParams& p, int D, dim3 grid,
     // recurrentgemma's heads.  At 8 warps x 8 pairs the CTA stages 64 query
     // rows of 1 KB plus a 32-key K/V chunk: ~129 KB of shared memory, so
     // one CTA an SM, and 64 fp32 accumulators a lane.
-    case 256:
-      if constexpr (WIDE)
-        return launch_attention_d<T, 8, NWARPS, PPW>(p, grid, stream);
-      return cudaErrorInvalidValue;
+    case 256: return launch_attention_d<T, 8, NWARPS, PPW>(p, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int NWARPS, int PPW, bool WIDE = false>
+template <int NWARPS, int PPW>
 cudaError_t launch_attention(const AttnParams& p, int dtype, int D, dim3 grid,
                              cudaStream_t stream) {
   if (dtype == kFloat32)
-    return launch_attention_t<float, NWARPS, PPW, WIDE>(p, D, grid, stream);
+    return launch_attention_t<float, NWARPS, PPW>(p, D, grid, stream);
   if (dtype == kBFloat16)
-    return launch_attention_t<__nv_bfloat16, NWARPS, PPW, WIDE>(p, D, grid,
-                                                                stream);
+    return launch_attention_t<__nv_bfloat16, NWARPS, PPW>(p, D, grid,
+                                                          stream);
   return cudaErrorInvalidValue;
 }
 

@@ -33,7 +33,6 @@ extern "C" int flash_attention_launch(
   p.v = v;
   p.o = o;
   p.kv_start = kv_start;
-  p.kv_len = nullptr;
   p.q_sb = q_sb;
   p.q_ss = q_ss;
   p.q_sh = q_sh;
@@ -56,8 +55,6 @@ extern "C" int flash_attention_launch(
   p.scale = scale;
   p.softcap = softcap;
   const dim3 grid(B * KVH, (Sq + p.rows_per_cta - 1) / p.rows_per_cta);
-  // Wide: head_dim 256 (recurrentgemma) is built here, not for decode.
-  return static_cast<int>(
-      repro::launch_attention<kWarps, kPairsPerWarp, /*WIDE=*/true>(
-          p, dtype, D, grid, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(repro::launch_attention<kWarps, kPairsPerWarp>(
+      p, dtype, D, grid, static_cast<cudaStream_t>(stream)));
 }

@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 #: Every kernel source of the port, by library name.
 KERNELS = ("decode_attention", "flash_attention", "moe_gemm", "rglru",
@@ -41,8 +42,9 @@ _F = ctypes.c_float
 #: C signature of each library's entry point (all return a cudaError_t).
 SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _L, _L, _L, _L, _L, _L, _L, _L, _F, _P]),
+                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _F,
+                          _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _L, _L, _L, _L, _L, _L, _L, _L, _L,

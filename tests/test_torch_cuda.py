@@ -75,6 +75,57 @@ def test_decode_attention_kernel_matches_plain(rnd, dtype):
         dec_ops.decode_attention(q, kv[0], kv[1], 33),
         dec_ops.decode_attention_ref(q, kv[0], kv[1], 33),
         rtol=tol, atol=tol)
+    # Head dims 96 (lanes past a key row's vectors idle) and 32, groups of
+    # 3 (a CTA's head slot idle) and 12 (two CTAs a KV head), two splits.
+    for h, d in ((6, 96), (24, 32)):
+        q, kv = rnd((2, h, d), dt), rnd((2, 2, 600, 2, d), dt)
+        lens, starts = _i32([600, 431]), _i32([0, 290])
+        assert dec_ops.split_plan(
+            2, 2, 600, dec_ops.sm_count(q.device))[0] == 2
+        torch.testing.assert_close(
+            dec_ops.decode_attention(q, kv[0], kv[1], lens, starts),
+            dec_ops.decode_attention_ref(q, kv[0], kv[1], lens, starts),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_attention_split_kernel_on_a_long_cache(rnd, dtype):
+    """Batch 6 and 28 over 4096 slots (5 splits, and one: 224 CTAs fill
+    the card) with ragged windows: a window inside one split, kv_start
+    past the first split, lengths 1 and S, and an empty window (which gets
+    0).  The calls make no host sync, so they can be captured in a CUDA
+    graph."""
+    dt, tol = DTYPES[dtype]
+    for b in (6, 28):
+        q, cache = rnd((b, 32, 64), dt), rnd((2, 2, b, 4096, 8, 64), dt)
+        k, v = cache[0, 1], cache[1, 1]
+        fixed = [(4096, 0), (1, 0), (4096, 2500), (3000, 1000), (600, 500),
+                 (9, 9)]
+        gen = torch.Generator().manual_seed(b)
+        rand = torch.randint(0, 4096, (b - len(fixed), 2), generator=gen)
+        rows = fixed + [(int(max(x)) + 1, int(min(x))) for x in rand]
+        lens, starts = _i32([r[0] for r in rows]), _i32([r[1] for r in rows])
+        n_splits, _ = dec_ops.split_plan(b, 8, 4096,
+                                         dec_ops.sm_count(q.device))
+        assert (n_splits > 1) == (b == 6)
+        before = (dec_ops.launches, dec_ops.combine_launches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dec_ops.decode_attention(q, k, v, lens, starts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert (dec_ops.launches, dec_ops.combine_launches) == (
+            before[0] + 1, before[1] + (n_splits > 1))
+        ref = dec_ops.decode_attention_ref(q, k, v, lens, starts).float()
+        # Over thousands of keys a row's outputs are small (RMS ~0.03), so
+        # each row is held to tol times its largest |value|: an absolute
+        # 2e-2 would pass a split that dropped a 64-key chunk.
+        limit = tol * ref.abs().amax(dim=(1, 2), keepdim=True)
+        err = (out.float() - ref).abs()
+        assert bool((err <= limit).all()), float((err - limit).max())
+        assert bool((out[5] == 0).all())          # the empty window
 
 
 @pytest.mark.requires_cuda
@@ -106,6 +157,9 @@ def test_wrappers_reject_what_the_kernels_cannot_take(rnd):
                                                 torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         dec_ops.decode_attention(q, kv, kv, 8)
+    kv = rnd((2, 16, 2, 66), torch.float32)[..., :64]  # rows of 264 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        dec_ops.decode_attention(rnd((2, 8, 64), torch.float32), kv, kv, 8)
 
 
 GEMM_DTYPES = {"float32": (torch.float32, 1e-4),
@@ -116,12 +170,17 @@ GEMM_DTYPES = {"float32": (torch.float32, 1e-4),
 @pytest.mark.parametrize("dtype", list(GEMM_DTYPES))
 def test_moe_gemm_kernel_matches_plain(rnd, dtype):
     """Every variant (skinny C <= 8, tile C > 8) with ragged C, K and N
-    edges, and olmoe-1b-7b's decode and prefill products."""
+    edges, and olmoe-1b-7b's decode and prefill products.  The bf16 tile
+    (TMA + wgmma) at one to four m64 tiles and two row blocks (C = 300),
+    with N off its 128-column tile and K off its 64-deep stage."""
     dt, tol = GEMM_DTYPES[dtype]
     before = mg_ops.launches
     shapes = ((3, 5, 40, 48), (2, 33, 32, 48), (4, 96, 64, 64),
               (2, 9, 2056, 136), (1, 1, 8, 8), (5, 70, 24, 200),
-              (64, 8, 2048, 1024), (64, 8, 1024, 2048), (64, 224, 2048, 1024))
+              (64, 8, 2048, 1024), (64, 8, 1024, 2048), (64, 224, 2048, 1024),
+              (64, 224, 1024, 2048)) + tuple(
+                  (3, c, k, n) for c in (9, 32, 40, 224, 300)
+                  for k, n in ((2048, 200), (40, 136)))
     for e, c, k, n in shapes:
         x, w = rnd((e, c, k), dt), rnd((e, k, n), dt, k ** -0.5)
         torch.testing.assert_close(mg_ops.grouped_gemm(x, w),

@@ -21,6 +21,8 @@ from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
 from repro.models import flash as jax_models_flash
 from repro.models.common import AttnSpec as JaxAttnSpec
 from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import ops as fl_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import flash as torch_models_flash
@@ -90,6 +92,74 @@ def test_decode_attention_matches_pallas(dtype, case):
         None if starts is None else torch.from_numpy(starts.copy()))
     assert out.shape == (b, kvh * g, d) and out.dtype == tq.dtype
     _close(out, ref, DTYPES[dtype][2])
+
+
+# (B, KVH, G, S, D, kv_len, kv_start, split_len): a split wholly outside
+# the window, a window inside one split, kv_start past the first split,
+# lengths 1 and S, a short last split.
+SPLIT_CASES = [
+    (2, 2, 2, 96, 32, [40, 96], [0, 64], 32),
+    (2, 1, 4, 128, 32, [60, 45], [34, 40], 32),
+    (2, 2, 1, 128, 16, [1, 128], [0, 0], 32),
+    (3, 1, 2, 100, 32, [100, 70, 99], [0, 65, 33], 32),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_decode_attention_split_ref_matches_pallas(dtype, case):
+    """The split kernel's two-pass algebra against the one-pass plain
+    version and the Pallas kernel in interpret mode."""
+    b, kvh, g, s, d, kv_len, kv_start, split_len = case
+    n_splits = -(-s // split_len)
+    rng = np.random.default_rng(b * 1000 + s + split_len)
+    jq, tq = _pair(rng.standard_normal((b, kvh * g, d)), dtype)
+    jk, tk = _pair(rng.standard_normal((b, s, kvh, d)), dtype)
+    jv, tv = _pair(rng.standard_normal((b, s, kvh, d)), dtype)
+    lens, starts = np.asarray(kv_len, np.int32), np.asarray(kv_start,
+                                                            np.int32)
+    ref = jax_decode(jq, jk, jv, jnp.asarray(lens), jnp.asarray(starts),
+                     block_kv=s if s % 32 else 32, interpret=True)
+    tl, ts = torch.from_numpy(lens.copy()), torch.from_numpy(starts.copy())
+    out = decode_attention_split_ref(
+        tq, tk, tv, tl, ts, n_splits=n_splits, split_len=split_len)
+    assert out.shape == (b, kvh * g, d) and out.dtype == tq.dtype
+    _close(out, ref, DTYPES[dtype][2])
+    _close(out, dec_ops.decode_attention_ref(tq, tk, tv, tl, ts).float(),
+           DTYPES[dtype][2])
+
+
+def test_decode_attention_split_ref_empty_window_gives_zero():
+    """A window with no key gives 0 in both plain versions (the port's
+    convention; the Pallas kernel gives the mean of the values)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((2, 4, 32), (2, 96, 2, 32), (2, 96, 2, 32)))
+    lens, starts = torch.tensor([9, 96]), torch.tensor([9, 50])
+    out = decode_attention_split_ref(q, k, v, lens, starts,
+                                     n_splits=3, split_len=32)
+    ref = dec_ops.decode_attention_ref(q, k, v, lens, starts)
+    assert bool((out[0] == 0).all()) and bool((ref[0] == 0).all())
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 4, 12, 20, 28])
+def test_split_plan_at_the_paths_and_a_long_cache(batch):
+    """One split (one launch a call) on the engine paths' 128-slot caches
+    at every batch arm, llama's and olmoe's heads.  At 4096 slots, splits
+    of at least 256 keys that cover the cache, and as many as fit two CTAs
+    to each of the H100's 132 SMs: at batch 4, 8 splits (256 CTAs, two
+    waves)."""
+    for kvh in (8, 16):
+        assert dec_ops.split_plan(batch, kvh, 128) == (1, 128)
+    n, length = dec_ops.split_plan(batch, 8, 4096)
+    assert (n - 1) * length < 4096 <= n * length
+    if n > 1:
+        assert length >= dec_ops.MIN_SPLIT_KEYS and length % 64 == 0
+        assert batch * 8 * n <= 2 * dec_ops.SM_COUNT
+    assert batch * 8 * (n + 1) > 2 * dec_ops.SM_COUNT or n == 4096 // 256
+    if batch == 4:
+        assert (n, length) == (8, 512)
 
 
 def test_decode_attention_reads_cache_slices_in_place():
