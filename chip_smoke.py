@@ -36,7 +36,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      |err| <= 1e-4 * (1 + |ref|): the state carries every earlier step,
      summed in another order by the plain version.  Prefill attention also
      runs at recurrentgemma-9b's heads (16/1 x 256, window 2048), and
-     RMSNorm at its d_model 4096;
+     RMSNorm at its d_model 4096.  Prefill attention (bf16: the
+     tensor-core kernel; fp32: the CUDA-core one) is held row by row, each
+     query row to tol * its own max|ref|, and in bf16 also runs at 4 x 4000
+     tokens: llama's heads (causal; phase 6's shapes, SDPA with
+     is_causal) and recurrentgemma's (window 2048, which skips key tiles;
+     SDPA with a boolean mask), compared with the plain version one prompt
+     at a time;
   3. model level in fp32 on narrow configs: llama3.2-1b's head geometry
      and olmoe-1b-7b's (qk-norm, untied head, 8 experts top-2 at capacity
      factor 8 so no near-tie can move a token to another expert).  The
@@ -72,8 +78,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. after each path, its launch counters equal what the path implies
      (counters set to 0 just before the path and read just after; every
      kernel off the path at 0; the 128-slot caches never launch decode
-     attention's combine kernel), then a torch.profiler breakdown of one
-     more full-width generate (kernel time by name, device busy share);
+     attention's combine kernel; every prefill-attention launch is the
+     tensor-core kernel's, `tc_launches`), then a torch.profiler breakdown
+     of one more full-width generate (kernel time by name, device busy
+     share);
   6. after llama3.2-1b's path, one profiled generate on a second engine
      with the same params over a 4096-slot cache (batch 4, 4000-token
      prompts): decode attention splits the KV axis there, and the launch
@@ -135,7 +143,8 @@ KERNELS = {
               "src/repro/kernels/rglru/rglru.py:31"),
 }
 #: Substrings of the port's CUDA kernel names (csrc/*.cu).
-PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel", "moe_gemm_",
+PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel",
+                     "flash_attention_wgmma", "moe_gemm_",
                      "wkv6_", "rglru_", "decode_attention_split",
                      "decode_attention_combine")
 #: The long-cache generate of phase 6: llama3.2-1b at batch 4 over a
@@ -221,6 +230,8 @@ def wkv6_flops(b, s, h, n, chunk):
 
 def kernel_checks(torch, ops):
     import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import row_scaled_error
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, main = [], {}
@@ -240,23 +251,37 @@ def kernel_checks(torch, ops):
 
     def check(name, dtype_name, shape, kernel, plain, library, nbytes,
               flops, is_main, long_sums=False, compute_dtype=None,
-              library_note=None, to_max_ref=False):
-        out, ref = flat(kernel()), flat(plain())
+              library_note=None, to_max_ref=False, per_row=False,
+              compare=None, plain_reps=15):
+        """Hold kernel() to plain() and time kernel, plain and library.
+        `compare`, a (kernel, plain) pair of smaller calls, replaces the
+        timed pair in the comparison where the plain version cannot run at
+        the timed shape."""
+        kernel_c, plain_c = compare or (kernel, plain)
+        k_out, p_out = kernel_c(), plain_c()
+        out, ref = flat(k_out), flat(p_out)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         err = diff.max().item()
         # Long sums are held as |err| <= tol * (1 + |ref|): one bf16
         # rounding step of a GEMM output of magnitude 4-8 is 0.03.  Small
         # outputs (attention over thousands of keys, RMS ~0.03) are held
-        # as |err| <= tol * max|ref|.
+        # as |err| <= tol * max|ref|, prefill attention row by row (each
+        # query row to its own max|ref|: row 0 is a value row of magnitude
+        # ~3, so the whole output's max would pass a lost tile of keys).
         if long_sums:
             scaled = (diff / (1 + ref.abs())).max().item()
+        elif per_row:
+            scaled = row_scaled_error(k_out, p_out)
         elif to_max_ref:
             scaled = err / ref.abs().max().item()
         else:
             scaled = err
         finite = bool(torch.isfinite(out).all().item())
-        (ms, call_ms), (plain_ms, _) = time_ms(kernel), time_ms(plain)
+        del k_out, p_out, out, ref, diff
+        ms, call_ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=plain_reps,
+                           inner=min(10, plain_reps))[0]
         lib_ms = time_ms(library)[0] if library is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[compute_dtype or dtype_name]
@@ -272,6 +297,7 @@ def kernel_checks(torch, ops):
             f"max_abs_err={err:.3e}"
             + (f" err_over_1_plus_ref={scaled:.3e}" if long_sums else "")
             + (f" err_over_max_ref={scaled:.3e}" if to_max_ref else "")
+            + (f" err_over_row_max_ref={scaled:.3e}" if per_row else "")
             + f" tol={tol:g} finite={finite}")
         if not finite or not scaled <= tol:
             failures.append(f"{name} {dtype_name} {shape}: err={scaled} "
@@ -306,31 +332,58 @@ def kernel_checks(torch, ops):
               (2 * q.numel() + 2 * keys * kvh * d) * e + 8 * b,
               4 * keys * h * d, is_main, to_max_ref=s_len == LONG_SEQ_LEN)
 
-    def prefill_case(dtype_name, h, kvh, d, is_main, window=0):
+    def prefill_case(dtype_name, h, kvh, d, is_main, window=0,
+                     b=MAX_BATCH, sq=PROMPT_LEN):
+        """Prefill attention over `b` prompts of `sq` tokens, held row by
+        row to the plain version.  The engine's prompts carry left pads
+        (kv_start); the long ones do not.  Over long prompts the plain
+        version's [B, KVH, G, Sq, Sk] fp32 scores (~33 GB at llama's 4 x
+        4000) are too large to run at batch b, so there it runs one prompt
+        at a time for the comparison and is timed at batch 1 (3 windows of
+        3 calls); the kernel and SDPA are timed at batch b."""
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
-        b, sq = MAX_BATCH, PROMPT_LEN
+        fa = ops["flash_attention"]
+        long = sq > PROMPT_LEN
         q, k, v = rnd((b, sq, h, d), dt), rnd((b, sq, kvh, d), dt), \
             rnd((b, sq, kvh, d), dt)
-        starts = ints(0, 8, b)
+        starts = None if long else ints(0, 8, b)
         pos = torch.arange(sq, device=dev)
-        mask = ((pos[None, :, None] >= pos[None, None, :])
-                & (pos[None, None, :] >= starts[:, None, None].long()))
+        mask = (pos[:, None] >= pos[None, :])[None]
         if window:
             mask = mask & (pos[None, None, :] > pos[None, :, None] - window)
-        pairs = int(mask.sum())
+        if starts is not None:
+            mask = mask & (pos[None, None, :] >= starts[:, None, None].long())
+        pairs = int(mask.sum()) * (b // mask.shape[0])
         shape = (b, sq, kvh, h // kvh, d) + ((f"window {window}",)
                                              if window else ())
-        check("flash_attention", dtype_name, shape,
-              lambda: ops["flash_attention"].flash_attention(
-                  q, k, v, window=window, kv_start=starts),
-              lambda: ops["flash_attention"].attention_ref(
-                  q, k, v, window=window, kv_start=starts),
-              lambda: F.scaled_dot_product_attention(
-                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                  attn_mask=mask[:, None], enable_gqa=True),
-              (2 * q.numel() + 2 * k.numel()) * e + 4 * b,
-              4 * pairs * h * d, is_main)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if long and not window:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, window=window,
+                                      kv_start=starts)
+
+        def plain(lo=0, hi=1 if long else b):
+            return fa.attention_ref(q[lo:hi], k[lo:hi], v[lo:hi],
+                                    window=window, kv_start=starts)
+        check("flash_attention", dtype_name, shape, kernel, plain, library,
+              (2 * q.numel() + 2 * k.numel()) * e + (0 if long else 4 * b),
+              4 * pairs * h * d, is_main, per_row=True,
+              compare=(kernel, lambda: torch.cat(
+                  [plain(i, i + 1) for i in range(b)])) if long else None,
+              plain_reps=3 if long else 15)
+        if long:
+            say(f"  (flash_attention {shape}: compared with the plain "
+                f"version one prompt at a time; plain_ms is at batch 1, "
+                f"kernel_ms and library_ms at batch {b})")
 
     def wkv6_case(dtype_name, s_len, chunk, is_main):
         dt = getattr(torch, dtype_name)
@@ -439,6 +492,15 @@ def kernel_checks(torch, ops):
         prefill_case(dtype_name, 32, 8, 64, is_bf16)
         prefill_case(dtype_name, 16, 16, 128, False)
         prefill_case(dtype_name, 16, 1, 256, False, window=2048)
+        if is_bf16:
+            # Phase 6's long prompts (llama heads, causal, 4 x 4000) and
+            # recurrentgemma's heads at that length, where its 2048 window
+            # skips whole key tiles.
+            prefill_case(dtype_name, 32, 8, 64, False, b=LONG_BATCH,
+                         sq=LONG_PROMPT)
+            prefill_case(dtype_name, 16, 1, 256, False, window=2048,
+                         b=LONG_BATCH, sq=LONG_PROMPT)
+            torch.cuda.empty_cache()
 
         # Grouped expert GEMM at olmoe-1b-7b's products: decode gate/up and
         # down (64 experts x capacity 8), prefill gate/up and down at batch
@@ -811,13 +873,16 @@ def reset_counts(ops):
     for m in ops.values():
         m.launches = 0
     ops["decode_attention"].combine_launches = 0
+    ops["flash_attention"].tc_launches = 0
 
 
 def read_counts(ops):
-    """Each kernel's launches, and decode attention's combine launches."""
+    """Each kernel's launches, decode attention's combine launches and
+    prefill attention's tensor-core (bf16) launches."""
     counts = {name: m.launches for name, m in ops.items()}
     counts["decode_attention_combine"] = \
         ops["decode_attention"].combine_launches
+    counts["flash_attention_tc"] = ops["flash_attention"].tc_launches
     return counts
 
 
@@ -828,6 +893,7 @@ def expected_launches(family, cfg, n_generate, prompt_len):
     steps = n_generate * NEW_TOKENS
     counts = dict.fromkeys(KERNELS, 0)
     counts["decode_attention_combine"] = 0     # 128-slot caches: one split
+    counts["flash_attention_tc"] = 0
     if family == "rwkv6":
         # A layer's prefill: one chunked call over the prompt's whole
         # chunks, one call a tail token; then one call a decode step.
@@ -844,13 +910,16 @@ def expected_launches(family, cfg, n_generate, prompt_len):
         counts.update({"rglru": n_rec * passes,
                        "flash_attention": (n_layers - n_rec) * n_generate,
                        "rmsnorm": (2 * n_layers + 1) * passes})
-        return counts
-    norms = 4 * n_layers + 1 if cfg.qk_norm else 2 * n_layers + 1
-    counts.update({"decode_attention": n_layers * steps,
-                   "flash_attention": n_layers * n_generate,
-                   "moe_gemm": 3 * n_layers * passes
-                   if cfg.moe is not None else 0,
-                   "rmsnorm": norms * passes})
+    else:
+        norms = 4 * n_layers + 1 if cfg.qk_norm else 2 * n_layers + 1
+        counts.update({"decode_attention": n_layers * steps,
+                       "flash_attention": n_layers * n_generate,
+                       "moe_gemm": 3 * n_layers * passes
+                       if cfg.moe is not None else 0,
+                       "rmsnorm": norms * passes})
+    # Every path runs bf16, so every prefill-attention launch is the
+    # tensor-core kernel's.
+    counts["flash_attention_tc"] = counts["flash_attention"]
     return counts
 
 

@@ -1,4 +1,7 @@
-// Blocked online-softmax attention of the prefill kernel (flash_attention.cu).
+// Blocked online-softmax attention on the CUDA cores: the fp32 route of the
+// prefill kernel (flash_attention.cu; bf16 takes the wgmma kernel there).
+// fp32 stays off the tensor cores, whose fp32 mode (TF32) would miss the
+// 2e-5 tolerance the fp32 model checks hold the kernel to.
 //
 // One CTA owns one (batch, KV head) and a block of query rows; the G query
 // heads of that KV head and all of the block's rows form the CTA's
@@ -186,14 +189,9 @@ cudaError_t launch_attention_t(const AttnParams& p, int D, dim3 grid,
 }
 
 template <int NWARPS, int PPW>
-cudaError_t launch_attention(const AttnParams& p, int dtype, int D, dim3 grid,
-                             cudaStream_t stream) {
-  if (dtype == kFloat32)
-    return launch_attention_t<float, NWARPS, PPW>(p, D, grid, stream);
-  if (dtype == kBFloat16)
-    return launch_attention_t<__nv_bfloat16, NWARPS, PPW>(p, D, grid,
-                                                          stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_attention_f32(const AttnParams& p, int D, dim3 grid,
+                                 cudaStream_t stream) {
+  return launch_attention_t<float, NWARPS, PPW>(p, D, grid, stream);
 }
 
 }  // namespace repro

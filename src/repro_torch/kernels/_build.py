@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -39,24 +39,28 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-#: C signature of each library's entry point (all return a cudaError_t).
+#: Arguments of the two prefill-attention entry points (the same C
+#: signature: pointers, shapes, strides, mask and scale, stream).
+_ATTN = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _F, _P]
+
+#: C signature of each entry point, by symbol (all return a cudaError_t).
+#: A library's default entry point is `<name>_launch`; flash_attention also
+#: has `flash_attention_tc_launch` (the bf16 tensor-core route).
 SIGNATURES = {
-    "decode_attention": ("decode_attention_launch",
-                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _F,
-                          _P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                         _I, _I, _F, _F, _P]),
-    "moe_gemm": ("moe_gemm_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "rglru": ("rglru_launch", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P]),
-    "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _I, _L, _F, _P]),
-    "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _L, _L, _L, _P]),
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
+                                _L, _F, _P],
+    "flash_attention_launch": _ATTN,
+    "flash_attention_tc_launch": _ATTN,
+    "moe_gemm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+    "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _F, _P],
+    "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
+                    _L, _L, _P],
 }
 
-_LOADED: Dict[str, object] = {}
+_LOADED: Dict[Tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -109,16 +113,17 @@ def build_all(names: Iterable[str] = KERNELS) -> List[Path]:
     return paths
 
 
-def load(name: str):
-    """The ctypes entry point of library `name`, building it if needed."""
-    fn = _LOADED.get(name)
+def load(name: str, symbol: Optional[str] = None):
+    """The ctypes entry point `symbol` (default `<name>_launch`) of library
+    `name`, building the library if needed."""
+    symbol = symbol or f"{name}_launch"
+    fn = _LOADED.get((name, symbol))
     if fn is None:
         (path,) = build_all([name])
-        symbol, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = SIGNATURES[symbol]
         fn.restype = ctypes.c_int
-        _LOADED[name] = fn
+        _LOADED[(name, symbol)] = fn
     return fn
 
 

@@ -6,7 +6,14 @@ The arithmetic of `repro.kernels.flash_attention.ref.attention_ref`
 per-row `kv_start`: keys before it are invalid (the left-pad prefix of
 `models/flash.py`'s `kv_valid`).  Weights of invalid keys are selected to
 exactly 0, so a query row with no valid key — a left-pad row — is 0,
-finite, as the kernel writes it."""
+finite, as the kernel writes it.
+
+`row_scaled_error` is the tolerance measure the kernel is held to on the
+card: each query row (one head's D outputs at one position) against that
+row's own max |ref|.  Over thousands of keys a row's outputs are small
+(RMS ~1/sqrt(keys)) while a row over one key is a value row of magnitude
+~3, so a bound scaled by the whole output's max, or an absolute one, would
+pass a result that lost a whole tile of keys in late rows."""
 
 from __future__ import annotations
 
@@ -47,3 +54,14 @@ def attention_ref(q, k, v, *, scale: Optional[float] = None,
     p = torch.where(mask, torch.softmax(s, dim=-1), torch.zeros_like(s))
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def row_scaled_error(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max over query rows of max |out - ref| / max |ref| of that row, a row
+    being the last dim (one head's D values at one position).  A row whose
+    reference is all zeros (no valid key) passes only where `out` is zero
+    too."""
+    o = out.float().reshape(-1, out.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    err = (o - r).abs().amax(dim=1)
+    return float((err / r.abs().amax(dim=1).clamp_min(1e-30)).max())

@@ -10,7 +10,9 @@ grouped GEMM, a sum of 1024-2048 products an output, 1e-4 in fp32; WKV6,
 whose outputs are sums over C·N terms and over the carried state, 1e-4 in
 fp32 (its kernel computes in fp32 from bf16 inputs too, so bf16 is held to
 2e-2); the RG-LRU scan (fp32 only), whose state carries every earlier step
-at another rounding order than the plain versions', 1e-4.
+at another rounding order than the plain versions', 1e-4.  Prefill
+attention over long prompts, whose late rows are small (RMS ~0.03), is
+held row by row to tol times each row's max |ref| (`row_scaled_error`).
 """
 
 import pytest
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fl_ops
+from repro_torch.kernels.flash_attention.ref import row_scaled_error
 from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -146,6 +149,70 @@ def test_flash_attention_kernel_matches_plain(rnd, dtype):
         fl_ops.flash_attention(q, k, v, window=33, softcap=20.0),
         fl_ops.attention_ref(q, k, v, window=33, softcap=20.0),
         rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", [
+    # (H, KVH, D, window, softcap, kv_start)
+    (32, 8, 64, 0, 0.0, None),
+    (32, 8, 64, 0, 0.0, 700),
+    (16, 16, 128, 0, 20.0, None),
+    (16, 1, 256, 2048, 0.0, None),
+    (16, 1, 256, 512, 0.0, 300),
+])
+def test_flash_attention_tc_kernel_over_2048_tokens(rnd, case):
+    """The bf16 (tensor-core) kernel over one 2048-token prompt, held row by
+    row to tol times that row's max |ref| (late rows average ~2000 keys and
+    are ~0.03 RMS, so an absolute 2e-2 would pass a lost key tile): llama's,
+    olmoe's (with a softcap) and recurrentgemma's heads, causal, under its
+    2048 window and under a 512 window that skips tiles, and with left
+    pads (rows before kv_start have no key and are 0)."""
+    h, kvh, d, window, softcap, start = case
+    dt, tol = DTYPES["bfloat16"]
+    q, k, v = rnd((1, 2048, h, d), dt), rnd((1, 2048, kvh, d), dt), \
+        rnd((1, 2048, kvh, d), dt)
+    starts = None if start is None else _i32([start])
+    before = (fl_ops.launches, fl_ops.tc_launches)
+    out = fl_ops.flash_attention(q, k, v, window=window, softcap=softcap,
+                                 kv_start=starts)
+    assert (fl_ops.launches, fl_ops.tc_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    ref = fl_ops.attention_ref(q, k, v, window=window, softcap=softcap,
+                               kv_start=starts)
+    assert bool(torch.isfinite(out).all())
+    assert row_scaled_error(out, ref) <= tol
+    if start is not None:
+        assert bool((out[:, :start] == 0).all())
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_routes_by_dtype(rnd):
+    """bf16 launches the tensor-core kernel (tc_launches advances), fp32
+    the CUDA-core kernel, unchanged and held to 2e-5; a dtype neither takes
+    raises, and so do q/k/v the bf16 kernel's TMA cannot read."""
+    q, k, v = rnd((2, 96, 12, 64), torch.float32), \
+        rnd((2, 96, 4, 64), torch.float32), rnd((2, 96, 4, 64), torch.float32)
+    starts = _i32([0, 40])
+    before = (fl_ops.launches, fl_ops.tc_launches)
+    out = fl_ops.flash_attention(q, k, v, window=50, kv_start=starts)
+    assert (fl_ops.launches, fl_ops.tc_launches) == (before[0] + 1,
+                                                     before[1])
+    torch.testing.assert_close(
+        out, fl_ops.attention_ref(q, k, v, window=50, kv_start=starts),
+        rtol=2e-5, atol=2e-5)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    out = fl_ops.flash_attention(qb, kb, vb, window=50, kv_start=starts)
+    assert (fl_ops.launches, fl_ops.tc_launches) == (before[0] + 2,
+                                                     before[1] + 1)
+    assert row_scaled_error(out, fl_ops.attention_ref(
+        qb, kb, vb, window=50, kv_start=starts)) <= 2e-2
+    with pytest.raises(TypeError):
+        fl_ops.flash_attention(q.half(), k.half(), v.half())
+    ragged = rnd((2, 96, 12, 66), torch.bfloat16)[..., :64]  # 132-B heads
+    with pytest.raises(ValueError, match="16-byte"):
+        fl_ops.flash_attention(ragged, kb, vb)
+    assert (fl_ops.launches, fl_ops.tc_launches) == (before[0] + 2,
+                                                     before[1] + 1)
 
 
 @pytest.mark.requires_cuda
