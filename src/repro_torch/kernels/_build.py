@@ -55,7 +55,7 @@ SIGNATURES = {
     "flash_attention_tc_launch": _ATTN,
     "moe_gemm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
-    "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _F, _P],
+    "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _F, _P],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
                     _L, _L, _P],
 }

@@ -64,6 +64,40 @@ def test_rmsnorm_kernel_matches_plain(rnd, dtype):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_plans_on_the_card(rnd, dtype):
+    """Each of the kernel's plans: olmoe's qk-norm rows [28, 16, 16, 128]
+    (several rows a CTA, 16-byte loads), a row view whose stride is not D
+    (vector loads at stride D + 8, scalar ones at D + 1), D = 100 (scalar
+    in bf16, a row across two warps; 16-byte loads in fp32), a single row,
+    a base one element past a 16-byte boundary (scalar) and d_model 4096
+    (one row a CTA); one launch a call."""
+    dt, tol = DTYPES[dtype]
+    vec = 16 // torch.tensor([], dtype=dt).element_size()
+    wide = rnd((300, 136), dt)
+    flat = rnd((7 * 2048 + 1,), dt)
+    cases = [(rnd((28, 16, 16, 128), dt), vec),
+             (wide[:, :128], vec),
+             (rnd((299, 129), dt)[:, :128], 1),
+             (rnd((40, 100), dt), 1 if 100 % vec else vec),
+             (rnd((1, 2048), dt), vec),
+             (flat[1:].view(7, 2048), 1),
+             (rnd((28, 4096), dt), vec)]
+    for x, want_vec in cases:
+        d = x.shape[-1]
+        s = rnd((d,), dt, 0.1)
+        x2 = rms_ops.rows_view(x)
+        plan = rms_ops.launch_plan(d, x.element_size(), x2.stride(0),
+                                   x2.data_ptr() % 16 == 0)
+        assert plan.vec == want_vec, (tuple(x.shape), x.stride(), plan)
+        before = rms_ops.launches
+        out = rms_ops.rmsnorm(x, s)
+        assert rms_ops.launches == before + 1
+        torch.testing.assert_close(out, rms_ops.rmsnorm_ref(x, s), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
 def test_decode_attention_kernel_matches_plain(rnd, dtype):
     dt, tol = DTYPES[dtype]
     q, cache = rnd((4, 32, 64), dt), rnd((2, 3, 4, 128, 8, 64), dt)
