@@ -28,9 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      whose outputs are sums over K = 1024-2048 products, and WKV6 (y and
      the final state, sums over C·N terms and the carried state), 2e-2 /
      1e-4 as |err| <= tol * (1 + |ref|).  WKV6 runs at rwkv6-3b's prefill (B 28,
-     S 64, H 40, N 64, chunk 32) and decode (S 1, chunk 1) shapes, from a
-     nonzero state.  The RG-LRU scan (fp32 only: the recurrence's inputs
-     and state are fp32 in the model) runs at recurrentgemma-9b's prefill
+     S 64, H 40, N 64, chunk 32) and decode (S 1, chunk 1) shapes and over
+     a long prompt (B 4, S 2048: 64 chunks), from a nonzero state; in bf16
+     the chunked rows also run at each value block (value columns a CTA)
+     the plan did not pick.  The RG-LRU scan (fp32 only: the recurrence's
+     inputs and state are fp32 in the model) runs at recurrentgemma-9b's prefill
      (B 28, S 16, W 4096) and decode (S 1) shapes from a nonzero state and
      is held, on h and on the final state, to SUM_TOLERANCE's 1e-4 as
      |err| <= 1e-4 * (1 + |ref|): the state carries every earlier step,
@@ -151,6 +153,9 @@ PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel",
 #: 4096-slot cache (4000-token prompts), where decode attention splits the
 #: KV axis across CTAs and merges the partials in a second kernel.
 LONG_BATCH, LONG_SEQ_LEN, LONG_PROMPT = 4, 4096, 4000
+#: Phase 2's long WKV6 prompt (rwkv6 is served with long contexts): at
+#: batch LONG_BATCH, 64 chunks of 32.
+WKV6_LONG_PROMPT = 2048
 WKV6_LIBRARY_NOTE = ("no single PyTorch call computes the WKV6 recurrence "
                      "(no library kernel for it), so library_ms is null")
 RGLRU_LIBRARY_NOTE = ("no single PyTorch call computes a first-order linear "
@@ -167,14 +172,17 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 15, inner: int = 10):
+def time_ms(fn, reps: int = 15, inner: int = 10, prime: bool = True):
     """Per-call times of `fn` from CUDA events, medians over `reps` windows
     of `inner` back-to-back calls, after a warm-up.  Returns (device_ms,
     call_ms): device_ms with the stream primed by a sleep kernel long
     enough that the host enqueues the whole window before the device
     reaches it (so the window holds device time only; a window the device
     caught up with is discarded and the sleep doubled); call_ms unprimed,
-    i.e. bounded by how fast the host can issue the calls."""
+    i.e. bounded by how fast the host can issue the calls.  With `prime`
+    False device_ms is call_ms: for a function of thousands of launches,
+    whose window overruns the launch queue, so that the host waits on the
+    sleeping device and no window is ever primed."""
     import torch
     for _ in range(3):
         fn()
@@ -197,6 +205,9 @@ def time_ms(fn, reps: int = 15, inner: int = 10):
         end.synchronize()
         return start.elapsed_time(end) / inner, primed
 
+    if not prime:
+        call = statistics.median(window(0)[0] for _ in range(reps))
+        return call, call
     cycles = int((2 * inner * host_s + 2e-4) * 2e9)   # ~2 GHz SM clock
     dev, call = [], []
     for _ in range(reps):
@@ -235,6 +246,7 @@ def kernel_checks(torch, ops):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, main = [], {}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def rnd(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)
@@ -252,7 +264,7 @@ def kernel_checks(torch, ops):
     def check(name, dtype_name, shape, kernel, plain, library, nbytes,
               flops, is_main, long_sums=False, compute_dtype=None,
               library_note=None, to_max_ref=False, per_row=False,
-              compare=None, plain_reps=15):
+              compare=None, plain_reps=15, plain_prime=True):
         """Hold kernel() to plain() and time kernel, plain and library.
         `compare`, a (kernel, plain) pair of smaller calls, replaces the
         timed pair in the comparison where the plain version cannot run at
@@ -281,7 +293,7 @@ def kernel_checks(torch, ops):
         del k_out, p_out, out, ref, diff
         ms, call_ms = time_ms(kernel)
         plain_ms = time_ms(plain, reps=plain_reps,
-                           inner=min(10, plain_reps))[0]
+                           inner=min(10, plain_reps), prime=plain_prime)[0]
         lib_ms = time_ms(library)[0] if library is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[compute_dtype or dtype_name]
@@ -385,11 +397,12 @@ def kernel_checks(torch, ops):
                 f"version one prompt at a time; plain_ms is at batch 1, "
                 f"kernel_ms and library_ms at batch {b})")
 
-    def wkv6_case(dtype_name, s_len, chunk, is_main):
+    def wkv6_case(dtype_name, s_len, chunk, is_main, b=MAX_BATCH,
+                  value_block=None):
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
         wk = ops["wkv6"]
-        b, h, n = MAX_BATCH, 40, 64
+        h, n = 40, 64
         shape = (b, s_len, h, n)
         r, k, v = rnd(shape, dt, 0.5), rnd(shape, dt, 0.5), rnd(shape, dt)
         logw = (-torch.exp(rnd(shape, torch.float32) - 2.0)).clamp(-4.0,
@@ -406,7 +419,7 @@ def kernel_checks(torch, ops):
 
         def kernel():
             return wk.wkv6(r, k, v, logw, u, next(kernel_states),
-                           chunk=chunk)
+                           chunk=chunk, value_block=value_block)
 
         def plain():
             st = next(plain_states)
@@ -415,10 +428,22 @@ def kernel_checks(torch, ops):
             return wk.wkv6_chunked_ref(r, k, v, logw, u, st, chunk)
         nbytes = 3 * r.numel() * e + 2 * 4 * r.numel() + 4 * u.numel() \
             + 2 * 4 * st0.numel()
-        check("wkv6", dtype_name, (b, s_len, h, n, f"chunk {chunk}"),
+        shape_note = (b, s_len, h, n, f"chunk {chunk}")
+        long = s_len > MAX_SEQ_LEN
+        if chunk > 1:
+            plan = wk.chunk_plan(b, h, n, e, r.stride(), True, value_block,
+                                 sm_count)
+            shape_note += (f"value block {plan.value_block}",
+                           f"{plan.ctas} CTAs")
+        check("wkv6", dtype_name, shape_note,
               kernel, plain, None, nbytes,
               wkv6_flops(b, s_len, h, n, chunk), is_main, long_sums=True,
-              compute_dtype="float32", library_note=WKV6_LIBRARY_NOTE)
+              compute_dtype="float32", library_note=WKV6_LIBRARY_NOTE,
+              plain_reps=3 if long else 15, plain_prime=not long)
+        if long:
+            say(f"  (wkv6 {shape_note[:4]}: plain_ms is the plain "
+                f"version's call time; its ~1,600 launches a call overrun "
+                f"the launch queue, so no primed window holds them)")
 
     def rglru_case(s_len, is_main):
         rg = ops["rglru"]
@@ -528,11 +553,26 @@ def kernel_checks(torch, ops):
                   is_bf16 and (c, k_dim) == (8, 2048), long_sums=True)
             del x, w
 
-        # WKV6 at rwkv6-3b's heads (40 x 64), batch 28, from a nonzero
-        # state: the chunked prefill (64 tokens, chunk 32) and the decode
-        # step.  The kernel computes in fp32 whatever the input type.
-        for s_len, chunk in ((64, 32), (1, 1)):
-            wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1)
+        # WKV6 at rwkv6-3b's heads (40 x 64) from a nonzero state: the
+        # chunked prefill at batch 28 (64 tokens, chunk 32), a long prompt
+        # at batch 4 (2048 tokens: 64 chunks, where staging the next chunk
+        # while one computes matters) and the decode step at batch 28.
+        # The kernel computes in fp32 whatever the input type.  In bf16
+        # the chunked rows also run at the value blocks the plan did not
+        # pick (the plan's choice against the others, in one run).
+        for s_len, chunk, b in ((64, 32, MAX_BATCH),
+                                (WKV6_LONG_PROMPT, 32, LONG_BATCH),
+                                (1, 1, MAX_BATCH)):
+            wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1,
+                      b=b)
+            if is_bf16 and chunk > 1:
+                picked = ops["wkv6"].chunk_plan(
+                    b, 40, 64, e, (s_len * 40 * 64, 40 * 64, 64, 1), True,
+                    sms=sm_count).value_block
+                for mv in ops["wkv6"].VALUE_BLOCKS[64]:
+                    if mv != picked:
+                        wkv6_case(dtype_name, s_len, chunk, False, b=b,
+                                  value_block=mv)
 
     # The RG-LRU scan at recurrentgemma-9b's width (4096) and batch 28: the
     # prompt's scan (16 tokens) and the decode step, in fp32.
