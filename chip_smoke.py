@@ -29,9 +29,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the final state, sums over C·N terms and the carried state), 2e-2 /
      1e-4 as |err| <= tol * (1 + |ref|).  WKV6 runs at rwkv6-3b's prefill (B 28,
      S 64, H 40, N 64, chunk 32) and decode (S 1, chunk 1) shapes and over
-     a long prompt (B 4, S 2048: 64 chunks), from a nonzero state; in bf16
-     the chunked rows also run at each value block (value columns a CTA)
-     the plan did not pick.  The RG-LRU scan (fp32 only: the recurrence's
+     a long prompt (B 4, S 2048: 64 chunks), from a nonzero state; the
+     chunked form's four products run on tensor cores in 3xTF32, so its
+     operations are counted at the TF32 peak three times over (twice
+     where v holds bf16 values), the rest at fp32's.  The RG-LRU scan (fp32 only: the recurrence's
      inputs and state are fp32 in the model) runs at recurrentgemma-9b's prefill
      (B 28, S 16, W 4096) and decode (S 1) shapes from a nonzero state and
      is held, on h and on the final state, to SUM_TOLERANCE's 1e-4 as
@@ -113,6 +114,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
+              "tf32": 495e12,        # dense tensor-core TF32
               "float32": 67e12}      # fp32 outside the tensor cores
 TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-5}
 #: Relative tolerance (|err| <= tol * (1 + |ref|)) of the kernels whose
@@ -222,17 +224,22 @@ def time_ms(fn, reps: int = 15, inner: int = 10, prime: bool = True):
     return statistics.median(dev), statistics.median(call)
 
 
-def wkv6_flops(b, s, h, n, chunk):
-    """Operations of the WKV6 kernel on these shapes: per token and (b, h)
-    7 N^2 in the step form (chunk 1); per chunk 4 C N^2 (inter-chunk
-    product and state update) + 2 C (C - 1) N (intra-chunk weights and
-    their product with v, strictly lower triangle) + 4 C N (bonus) + 2 N^2
-    (state decay) in the chunked form."""
+def wkv6_flops(b, s, h, n, chunk, exact_v):
+    """Operations of the WKV6 kernel on these shapes, keyed by the peak
+    (PEAK_FLOPS) they run at.  The step form (chunk 1): per token and
+    (b, h) 7 N^2 in fp32.  The chunked form, per chunk: four products on
+    tensor cores, the inter-chunk r S and the state update 2 C N^2 each,
+    the intra-chunk weights and their product with v C (C - 1) N each
+    (strictly lower triangle); each is computed in 3xTF32, three TF32
+    products, two for the products with v where v holds bf16 values
+    (`exact_v`: exact in TF32).  The bonus (4 C N) and the state decay
+    (2 N^2) in fp32."""
     if chunk == 1:
-        return b * h * s * 7 * n * n
-    per_chunk = 4 * chunk * n * n + 2 * chunk * (chunk - 1) * n \
-        + 4 * chunk * n + 2 * n * n
-    return b * h * (s // chunk) * per_chunk
+        return {"float32": b * h * s * 7 * n * n}
+    each = 2 * chunk * n * n + chunk * (chunk - 1) * n
+    per_chunk = {"tf32": 3 * each + (2 if exact_v else 3) * each,
+                 "float32": 4 * chunk * n + 2 * n * n}
+    return {kind: b * h * (s // chunk) * x for kind, x in per_chunk.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +253,6 @@ def kernel_checks(torch, ops):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, main = [], {}
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def rnd(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)
@@ -262,7 +268,7 @@ def kernel_checks(torch, ops):
         return torch.cat([t.float().flatten() for t in outs])
 
     def check(name, dtype_name, shape, kernel, plain, library, nbytes,
-              flops, is_main, long_sums=False, compute_dtype=None,
+              flops, is_main, long_sums=False,
               library_note=None, to_max_ref=False, per_row=False,
               compare=None, plain_reps=15, plain_prime=True):
         """Hold kernel() to plain() and time kernel, plain and library.
@@ -296,7 +302,11 @@ def kernel_checks(torch, ops):
                            inner=min(10, plain_reps), prime=plain_prime)[0]
         lib_ms = time_ms(library)[0] if library is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS[compute_dtype or dtype_name]
+        # `flops` is a count at the input type's peak, or a dict of counts
+        # keyed by the peak (PEAK_FLOPS) of each.
+        if not isinstance(flops, dict):
+            flops = {dtype_name: flops}
+        t_ops = sum(f / PEAK_FLOPS[kind] for kind, f in flops.items())
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         tol = (SUM_TOLERANCE if long_sums else TOLERANCE)[dtype_name]
@@ -305,7 +315,9 @@ def kernel_checks(torch, ops):
             f"plain_ms={plain_ms:.5f} "
             f"library_ms={'none' if lib_ms is None else f'{lib_ms:.5f}'} "
             f"bound_ms={bound_ms:.6f} bound_by={bound_by} "
-            f"bytes={int(nbytes)} flops={int(flops)} "
+            f"bytes={int(nbytes)} flops="
+            + "+".join(f"{kind}:{int(f)}" for kind, f in flops.items())
+            + " "
             f"max_abs_err={err:.3e}"
             + (f" err_over_1_plus_ref={scaled:.3e}" if long_sums else "")
             + (f" err_over_max_ref={scaled:.3e}" if to_max_ref else "")
@@ -397,8 +409,7 @@ def kernel_checks(torch, ops):
                 f"version one prompt at a time; plain_ms is at batch 1, "
                 f"kernel_ms and library_ms at batch {b})")
 
-    def wkv6_case(dtype_name, s_len, chunk, is_main, b=MAX_BATCH,
-                  value_block=None):
+    def wkv6_case(dtype_name, s_len, chunk, is_main, b=MAX_BATCH):
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
         wk = ops["wkv6"]
@@ -419,7 +430,7 @@ def kernel_checks(torch, ops):
 
         def kernel():
             return wk.wkv6(r, k, v, logw, u, next(kernel_states),
-                           chunk=chunk, value_block=value_block)
+                           chunk=chunk)
 
         def plain():
             st = next(plain_states)
@@ -431,14 +442,12 @@ def kernel_checks(torch, ops):
         shape_note = (b, s_len, h, n, f"chunk {chunk}")
         long = s_len > MAX_SEQ_LEN
         if chunk > 1:
-            plan = wk.chunk_plan(b, h, n, e, r.stride(), True, value_block,
-                                 sm_count)
-            shape_note += (f"value block {plan.value_block}",
-                           f"{plan.ctas} CTAs")
+            plan = wk.chunk_plan(b, h, n, e, r.stride(), True)
+            shape_note += (f"{plan.ctas} CTAs of {plan.threads}",)
         check("wkv6", dtype_name, shape_note,
               kernel, plain, None, nbytes,
-              wkv6_flops(b, s_len, h, n, chunk), is_main, long_sums=True,
-              compute_dtype="float32", library_note=WKV6_LIBRARY_NOTE,
+              wkv6_flops(b, s_len, h, n, chunk, e == 2), is_main,
+              long_sums=True, library_note=WKV6_LIBRARY_NOTE,
               plain_reps=3 if long else 15, plain_prime=not long)
         if long:
             say(f"  (wkv6 {shape_note[:4]}: plain_ms is the plain "
@@ -557,22 +566,12 @@ def kernel_checks(torch, ops):
         # chunked prefill at batch 28 (64 tokens, chunk 32), a long prompt
         # at batch 4 (2048 tokens: 64 chunks, where staging the next chunk
         # while one computes matters) and the decode step at batch 28.
-        # The kernel computes in fp32 whatever the input type.  In bf16
-        # the chunked rows also run at the value blocks the plan did not
-        # pick (the plan's choice against the others, in one run).
+        # The kernel computes in fp32 whatever the input type.
         for s_len, chunk, b in ((64, 32, MAX_BATCH),
                                 (WKV6_LONG_PROMPT, 32, LONG_BATCH),
                                 (1, 1, MAX_BATCH)):
             wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1,
                       b=b)
-            if is_bf16 and chunk > 1:
-                picked = ops["wkv6"].chunk_plan(
-                    b, 40, 64, e, (s_len * 40 * 64, 40 * 64, 64, 1), True,
-                    sms=sm_count).value_block
-                for mv in ops["wkv6"].VALUE_BLOCKS[64]:
-                    if mv != picked:
-                        wkv6_case(dtype_name, s_len, chunk, False, b=b,
-                                  value_block=mv)
 
     # The RG-LRU scan at recurrentgemma-9b's width (4096) and batch 28: the
     # prompt's scan (16 tokens) and the decode step, in fp32.

@@ -21,10 +21,10 @@
 //      bonus  y_i += <r_i, u k_i> v_i
 //      state  S = e^total S + sum_j (k_j e^(total - cum_j)) v_j^T
 //    Column m of S evolves from r, k, logw and v[:, m] alone, and y[:, m]
-//    reads only that column, so a CTA owns (b, h, a block of MV value
-//    columns; `ops.chunk_plan` picks MV) and each of its warps a 16-column
-//    slice of that block (and, where the block has fewer than four such
-//    slices, a part of the key axis).  A warp keeps its slice of the state
+//    reads only that column, so a CTA owns one (b, h) and each of its warps
+//    a 16-column slice of the values (and, where the head has fewer than
+//    four such slices, a part of the key axis).  A warp keeps its slice of
+//    the state
 //    in registers from the first chunk to the last, as the accumulator of
 //    the tensor-core products, and reads and writes it in device memory
 //    once.  Per chunk (padded to 32 positions; past C every operand is 0,
@@ -147,31 +147,30 @@ constexpr float kLog2e = 1.4426950408889634f;
 // --- the chunk kernel --------------------------------------------------------
 
 // Shapes, pitches and shared-memory layout of the chunk kernel for head dim
-// N and MV value columns a CTA.  Pitches (in elements) keep each warp's
-// fragment loads free of bank conflicts and every row 16-byte aligned.
-template <typename T, int N, int MV>
+// N.  Pitches (in elements) keep each warp's fragment loads free of bank
+// conflicts and every row 16-byte aligned.
+template <typename T, int N>
 struct ChunkGeo {
   static constexpr int CP = kMaxChunk;        // positions, padded
-  static constexpr int VB = MV / 16;          // 16-column slices a CTA
+  static constexpr int VB = N / 16;           // 16-column value slices
   static constexpr int NP = (4 / VB < N / 8) ? 4 / VB : N / 8;  // key parts
   static constexpr int kWarps = VB * NP;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int NT = N / NP / 8;       // 8-key tiles a warp
   static constexpr int EV = 16 / sizeof(T);   // elements a 16-byte copy
   static constexpr int LW_P = N + 4;          // staged logw (fp32)
-  static constexpr int RK_P = N + EV;         // staged r, k (T)
-  static constexpr int V_P = MV + EV;         // staged v (T)
+  static constexpr int RK_P = N + EV;         // staged r, k, v (T)
   static constexpr int RD_P = N + 8;          // r e^cum_excl, k e^(total-cum)
   static constexpr int RN_P = N + 4;          // r e^(ce-mid), k e^(mid-cum)
-  static constexpr int VF_P = MV + 8;         // v in fp32
+  static constexpr int VF_P = N + 8;          // v in fp32
   static constexpr int A_P = CP + 4;          // intra-chunk weights
-  static constexpr int YB_P = MV + 4;         // y partials, [NP][CP][MV]
+  static constexpr int YB_P = N + 4;          // y partials, [NP][CP][N]
   // Byte offsets.
   static constexpr int oLw = 0;
   static constexpr int oR = oLw + CP * LW_P * 4;
   static constexpr int oK = oR + CP * RK_P * int(sizeof(T));
   static constexpr int oV = oK + CP * RK_P * int(sizeof(T));
-  static constexpr int oRd = oV + CP * V_P * int(sizeof(T));
+  static constexpr int oRd = oV + CP * RK_P * int(sizeof(T));
   static constexpr int oKf = oRd + CP * RD_P * 4;
   static constexpr int oRn = oKf + CP * RD_P * 4;   // rn, kn; then y partials
   static constexpr int oKn = oRn + CP * RN_P * 4;
@@ -185,7 +184,6 @@ struct ChunkGeo {
   static constexpr int oUb = oEt + N * 4;
   static constexpr int oUbT = oUb + kWarps * CP * 4;
   static constexpr int kSmemBytes = oUbT + CP * 4;
-  static_assert(MV % 16 == 0 && N % MV == 0, "value block");
   static_assert(N / NP % 8 == 0, "key parts");
   static_assert(oR % 16 == 0 && oK % 16 == 0 && oV % 16 == 0 &&
                     oRd % 16 == 0 && oRn % 16 == 0 && oVf % 16 == 0,
@@ -213,14 +211,14 @@ __device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-template <typename T, int N, int MV, bool ASYNC>
-__global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
+template <typename T, int N, bool ASYNC>
+__global__ void __launch_bounds__(ChunkGeo<T, N>::kThreads)
     wkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ logw,
                       const float* __restrict__ u, float* __restrict__ state,
                       float* __restrict__ y, int S, int H, int C,
                       long long sb, long long ss, long long sh) {
-  using G = ChunkGeo<T, N, MV>;
+  using G = ChunkGeo<T, N>;
   constexpr int CP = G::CP, NT = G::NT, EV = G::EV, kW = G::kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sLw = reinterpret_cast<float*>(smem + G::oLw);
@@ -241,8 +239,7 @@ __global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;      // mma fragment coordinates
-  const int bh = blockIdx.x / (N / MV);
-  const int mv0 = (blockIdx.x % (N / MV)) * MV;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const long long base = b * sb + h * sh;
   const int m0 = (warp / G::NP) * 16;          // the warp's value slice
@@ -252,7 +249,7 @@ __global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
 
   // The warp's slice of the state, S^T[m][n] in accumulator tiles: tile q
   // holds keys nw + 8q + (2 t4, 2 t4 + 1) of values m0 + (g, g + 8).
-  float* st = state + static_cast<long long>(bh) * N * N + mv0 + m0 + g;
+  float* st = state + static_cast<long long>(bh) * N * N + m0 + g;
   float sacc[NT][4];
 #pragma unroll
   for (int q = 0; q < NT; ++q) {
@@ -276,10 +273,7 @@ __global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
         const long long off = row0 + i * ss + q * EV;
         cp_async16(sR + i * G::RK_P + q * EV, r + off);
         cp_async16(sK + i * G::RK_P + q * EV, k + off);
-      }
-      for (int e = tid; e < C * (MV / EV); e += G::kThreads) {
-        const int i = e / (MV / EV), q = e % (MV / EV);
-        cp_async16(sV + i * G::V_P + q * EV, v + row0 + i * ss + mv0 + q * EV);
+        cp_async16(sV + i * G::RK_P + q * EV, v + off);
       }
       cp_async_commit();
     } else {
@@ -289,7 +283,7 @@ __global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
         sLw[i * G::LW_P + n] = logw[off];
         sR[i * G::RK_P + n] = r[off];
         sK[i * G::RK_P + n] = k[off];
-        if (n < MV) sV[i * G::V_P + n] = v[off + mv0];
+        sV[i * G::RK_P + n] = v[off];
       }
     }
   };
@@ -351,9 +345,9 @@ __global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
       store8(sKf + lane * G::RD_P + n0, kf);
     }
     sUb[warp * CP + lane] = ub;
-    for (int e = tid; e < CP * MV; e += G::kThreads) {
-      const int i = e / MV, m = e % MV;
-      sVf[i * G::VF_P + m] = i < C ? to_f(sV[i * G::V_P + m]) : 0.f;
+    for (int e = tid; e < CP * N; e += G::kThreads) {
+      const int i = e / N, m = e % N;
+      sVf[i * G::VF_P + m] = i < C ? to_f(sV[i * G::RK_P + m]) : 0.f;
     }
     __syncthreads();
     if (t0 + C < S) stage(t0 + C);   // lands while this chunk computes
@@ -461,7 +455,7 @@ __global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
     // stores its y^T tiles as they are (eight values m a 32-byte sector);
     // else the key parts' partials meet in shared memory as y[i][m].
     float* yrow = y + (static_cast<long long>(b) * S + t0) * H * N +
-                  static_cast<long long>(h) * N + mv0;
+                  static_cast<long long>(h) * N;
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
 #pragma unroll
@@ -480,8 +474,8 @@ __global__ void __launch_bounds__(ChunkGeo<T, N, MV>::kThreads)
 
     // y rows of this chunk: the key parts' partials added in order, 16
     // bytes at a time.
-    for (int e = tid; e < C * (MV / 4); e += G::kThreads) {
-      const int i = e / (MV / 4), c4 = 4 * (e % (MV / 4));
+    for (int e = tid; e < C * (N / 4); e += G::kThreads) {
+      const int i = e / (N / 4), c4 = 4 * (e % (N / 4));
       float4 acc = *reinterpret_cast<const float4*>(sY + i * G::YB_P + c4);
 #pragma unroll
       for (int p = 1; p < G::NP; ++p) {
@@ -564,41 +558,26 @@ __global__ void __launch_bounds__(kThreads)
   for (int q = 0; q < R; ++q) st[(g + G * q) * N + m] = s[q];
 }
 
-template <typename T, int N, int MV, bool ASYNC>
+template <typename T, int N, bool ASYNC>
 cudaError_t launch_chunk(const T* r, const T* k, const T* v,
                          const float* logw, const float* u, float* state,
                          float* y, int B, int S, int H, int C, long long sb,
                          long long ss, long long sh, cudaStream_t stream) {
-  using G = ChunkGeo<T, N, MV>;
+  using G = ChunkGeo<T, N>;
   static const cudaError_t configured = cudaFuncSetAttribute(
-      wkv6_chunk_kernel<T, N, MV, ASYNC>,
+      wkv6_chunk_kernel<T, N, ASYNC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (configured != cudaSuccess) return configured;
-  wkv6_chunk_kernel<T, N, MV, ASYNC>
-      <<<B * H * (N / MV), G::kThreads, G::kSmemBytes, stream>>>(
-          r, k, v, logw, u, state, y, S, H, C, sb, ss, sh);
+  wkv6_chunk_kernel<T, N, ASYNC><<<B * H, G::kThreads, G::kSmemBytes, stream>>>(
+      r, k, v, logw, u, state, y, S, H, C, sb, ss, sh);
   return cudaGetLastError();
-}
-
-template <typename T, int N, int MV>
-cudaError_t launch_staged(const T* r, const T* k, const T* v,
-                          const float* logw, const float* u, float* state,
-                          float* y, int B, int S, int H, int C, long long sb,
-                          long long ss, long long sh, bool async,
-                          cudaStream_t stream) {
-  if (async)
-    return launch_chunk<T, N, MV, true>(r, k, v, logw, u, state, y, B, S, H,
-                                        C, sb, ss, sh, stream);
-  return launch_chunk<T, N, MV, false>(r, k, v, logw, u, state, y, B, S, H,
-                                       C, sb, ss, sh, stream);
 }
 
 template <typename T, int N>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const float* logw, const float* u, float* state, float* y,
                    int B, int S, int H, int C, long long sb, long long ss,
-                   long long sh, int value_block, bool async,
-                   cudaStream_t stream) {
+                   long long sh, bool async, cudaStream_t stream) {
   const T* rt = static_cast<const T*>(r);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -607,48 +586,37 @@ cudaError_t launch(const void* r, const void* k, const void* v,
         rt, kt, vt, logw, u, state, y, S, H, sb, ss, sh);
     return cudaGetLastError();
   }
-  if (async) {
-    // 16-byte copies need 16-byte aligned rows of r, k, v and logw.
-    constexpr long long ev = 16 / sizeof(T);
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(r) |
-                            reinterpret_cast<uintptr_t>(k) |
-                            reinterpret_cast<uintptr_t>(v) |
-                            reinterpret_cast<uintptr_t>(logw);
-    if (bases % 16 != 0 || sb % ev != 0 || ss % ev != 0 || sh % ev != 0)
-      return cudaErrorInvalidValue;
-  }
-  if constexpr (N == 64) {
-    if (value_block == 32)
-      return launch_staged<T, 64, 32>(rt, kt, vt, logw, u, state, y, B, S, H,
-                                      C, sb, ss, sh, async, stream);
-  }
-  if constexpr (N >= 32) {
-    if (value_block == 16)
-      return launch_staged<T, N, 16>(rt, kt, vt, logw, u, state, y, B, S, H,
-                                     C, sb, ss, sh, async, stream);
-  }
-  if (value_block == N)
-    return launch_staged<T, N, N>(rt, kt, vt, logw, u, state, y, B, S, H, C,
-                                  sb, ss, sh, async, stream);
-  return cudaErrorInvalidValue;
+  if (!async)
+    return launch_chunk<T, N, false>(rt, kt, vt, logw, u, state, y, B, S, H,
+                                     C, sb, ss, sh, stream);
+  // 16-byte copies need 16-byte aligned rows of r, k, v and logw.
+  constexpr long long ev = 16 / sizeof(T);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(r) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) |
+                          reinterpret_cast<uintptr_t>(logw);
+  if (bases % 16 != 0 || sb % ev != 0 || ss % ev != 0 || sh % ev != 0)
+    return cudaErrorInvalidValue;
+  return launch_chunk<T, N, true>(rt, kt, vt, logw, u, state, y, B, S, H, C,
+                                  sb, ss, sh, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_n(const void* r, const void* k, const void* v,
                        const float* logw, const float* u, float* state,
                        float* y, int B, int S, int H, int N, int C,
-                       long long sb, long long ss, long long sh,
-                       int value_block, bool async, cudaStream_t stream) {
+                       long long sb, long long ss, long long sh, bool async,
+                       cudaStream_t stream) {
   switch (N) {
     case 16:
       return launch<T, 16>(r, k, v, logw, u, state, y, B, S, H, C, sb, ss,
-                           sh, value_block, async, stream);
+                           sh, async, stream);
     case 32:
       return launch<T, 32>(r, k, v, logw, u, state, y, B, S, H, C, sb, ss,
-                           sh, value_block, async, stream);
+                           sh, async, stream);
     case 64:
       return launch<T, 64>(r, k, v, logw, u, state, y, B, S, H, C, sb, ss,
-                           sh, value_block, async, stream);
+                           sh, async, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -656,15 +624,14 @@ cudaError_t dispatch_n(const void* r, const void* k, const void* v,
 
 }  // namespace
 
-// value_block: value columns a CTA of the chunk kernel (16 up to N);
 // async: stage the chunk kernel's inputs with 16-byte cp.async copies (they
 // must be 16-byte aligned), else with plain loads.  The step kernel (C 1)
-// takes neither.
+// ignores it.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* logw, const void* u, void* state,
                            void* y, int dtype, int B, int S, int H, int N,
                            int C, long long sb, long long ss, long long sh,
-                           int value_block, int async, void* stream) {
+                           int async, void* stream) {
   if (C < 1 || C > kMaxChunk || S % C != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -675,10 +642,9 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
   if (dtype == repro::kFloat32)
     return static_cast<int>(dispatch_n<float>(r, k, v, lw, uf, sf, yf, B, S,
                                               H, N, C, sb, ss, sh,
-                                              value_block, async != 0, st));
+                                              async != 0, st));
   if (dtype == repro::kBFloat16)
     return static_cast<int>(dispatch_n<__nv_bfloat16>(
-        r, k, v, lw, uf, sf, yf, B, S, H, N, C, sb, ss, sh, value_block,
-        async != 0, st));
+        r, k, v, lw, uf, sf, yf, B, S, H, N, C, sb, ss, sh, async != 0, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -57,7 +57,7 @@ SIGNATURES = {
     "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _F, _P],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
-                    _L, _L, _I, _I, _P],
+                    _L, _L, _I, _P],
 }
 
 _LOADED: Dict[Tuple[str, str], object] = {}

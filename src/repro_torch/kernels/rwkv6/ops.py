@@ -5,8 +5,8 @@ TPU-only `interpret` switch.
 Kernel: `repro_torch/csrc/wkv6.cu`, which replaces the Pallas `_wkv6_kernel`
 (src/repro/kernels/rwkv6/rwkv6.py:31) and, unlike it, honours the initial
 state.  It serves both the chunked prefill (chunk > 1) and the decode step
-(S == 1, chunk 1); the chunked variant's CTAs each own a block of value
-columns and stage their inputs as `chunk_plan` says.  A CPU tensor takes
+(S == 1, chunk 1); the chunked variant's CTAs each own one (b, h) and
+stage their inputs as `chunk_plan` says.  A CPU tensor takes
 the plain version in `ref.py` (`wkv6_step_ref` when S == 1, else
 `wkv6_chunked_ref`); a CUDA tensor launches the kernel or raises.
 `launches` counts kernel launches.
@@ -16,12 +16,11 @@ model's stacked recurrent state is updated without a copy."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ops import SM_COUNT, sm_count
 from repro_torch.kernels.rwkv6.ref import (wkv6_chunked_ref, wkv6_sequential,
                                            wkv6_step_ref)
 
@@ -31,12 +30,6 @@ HEAD_DIMS = (16, 32, 64)
 #: |logw| <= 4 over half a chunk stays far inside exp's range).
 MAX_CHUNK = 32
 
-#: Value columns a CTA of the chunked variant may own, by head dim,
-#: largest first.
-VALUE_BLOCKS = {16: (16,), 32: (32, 16), 64: (64, 32, 16)}
-#: CTAs a chunked call should have at least, in SMs: below it the value
-#: axis is split into smaller blocks.
-MIN_WAVE = 2
 #: Bytes of one asynchronous copy (`cp.async`) of the chunked variant.
 COPY_BYTES = 16
 
@@ -46,52 +39,36 @@ launches = 0
 
 class ChunkPlan(NamedTuple):
     """How the chunked variant covers [B, S, H, N]: `ctas` CTAs of
-    `threads` threads, each owning (b, h, `value_block` value columns) for
-    the whole sequence; `staging` "cp.async" (16-byte asynchronous copies
-    of the next chunk, issued while this one computes) or "loads" (plain
-    loads, for inputs that are not 16-byte aligned)."""
-    value_block: int
+    `threads` threads, each owning one (b, h) for the whole sequence;
+    `staging` "cp.async" (16-byte asynchronous copies of the next chunk,
+    issued while this one computes) or "loads" (plain loads, for inputs
+    that are not 16-byte aligned)."""
     staging: str
     ctas: int
     threads: int
 
 
 def chunk_plan(b: int, h: int, n: int, itemsize: int,
-               strides: Tuple[int, ...], aligned: bool,
-               value_block: Optional[int] = None,
-               sms: int = SM_COUNT) -> ChunkPlan:
+               strides: Tuple[int, ...], aligned: bool) -> ChunkPlan:
     """The chunked variant's plan for r/k/v of `itemsize` bytes with
-    element `strides` (batch, seq, head, channel) shared by logw, on a
-    card of `sms` SMs, from these alone.  `aligned`: the four base
-    addresses are multiples of 16 bytes.  A CTA owns `value_block` value
-    columns of one (b, h): by default the largest block of VALUE_BLOCKS[n]
-    that still gives MIN_WAVE * sms CTAs (whole heads at rwkv6-3b's
-    prefill, B 28 x H 40), else the smallest (B 4: 32 columns; fewer
-    heads: 16).  A warp takes 16 value columns, and a CTA with fewer than
-    four such warps splits the keys among its warps too.  Raises
-    ValueError for a head dim or value block the kernel is not built
-    for."""
-    if n not in VALUE_BLOCKS:
+    element `strides` (batch, seq, head, channel) shared by logw, from
+    these alone.  `aligned`: the four base addresses are multiples of 16
+    bytes.  A warp takes 16 value columns, and where a head has fewer
+    than four such slices (N 16, 32) the warps split the keys too, so that
+    a CTA has at least two warps.  Raises ValueError for a head dim the
+    kernel is not built for."""
+    if n not in HEAD_DIMS:
         raise ValueError(f"wkv6: head dim N={n} not in {HEAD_DIMS}")
-    blocks = VALUE_BLOCKS[n]
-    mv = value_block
-    if mv is None:
-        mv = next((c for c in blocks if b * h * (n // c) >= MIN_WAVE * sms),
-                  blocks[-1])
-    if mv not in blocks:
-        raise ValueError(f"wkv6: value block {mv} not in {blocks} at N={n}")
     ev = COPY_BYTES // itemsize
     copies = aligned and all(st % ev == 0 for st in strides[:3])
-    slices = mv // 16
+    slices = n // 16
     warps = slices * min(4 // slices, n // 8)
-    return ChunkPlan(mv, "cp.async" if copies else "loads",
-                     b * h * (n // mv), 32 * warps)
+    return ChunkPlan("cp.async" if copies else "loads", b * h, 32 * warps)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, bonus: torch.Tensor, state: torch.Tensor, *,
-         chunk: int = 32, value_block: Optional[int] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
+         chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v: [B, S, H, N] (fp32 or bf16, one dtype); logw fp32
     [B, S, H, N]; bonus fp32 [H, N]; state fp32 [B, H, N, N], indexed
     [key, value].  Returns (y fp32 [B, S, H, N], state), with `state`
@@ -99,8 +76,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On the card: N in HEAD_DIMS, 1 <= chunk <= MAX_CHUNK dividing S; r, k,
     v and logw share one set of strides with a unit last stride (they are
-    read in place); bonus and state are contiguous.  `value_block`
-    overrides the chunked variant's value columns a CTA (`chunk_plan`)."""
+    read in place); bonus and state are contiguous."""
     global launches
     if r.device.type == "cpu":
         if r.shape[1] == 1:
@@ -143,12 +119,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("wkv6: bonus and state must be contiguous")
     ptrs = [t.data_ptr() for t in (r, k, v, logw)]
     plan = chunk_plan(b, h, n, r.element_size(), strides,
-                      all(p % COPY_BYTES == 0 for p in ptrs), value_block,
-                      sm_count(r.device))
+                      all(p % COPY_BYTES == 0 for p in ptrs))
     y = torch.empty((b, s, h, n), dtype=torch.float32, device=r.device)
     err = _build.load("wkv6")(
         *ptrs, bonus.data_ptr(), state.data_ptr(), y.data_ptr(), code, b, s,
-        h, n, chunk, strides[0], strides[1], strides[2], plan.value_block,
+        h, n, chunk, strides[0], strides[1], strides[2],
         int(plan.staging == "cp.async"), _build.stream())
     _build.check("wkv6", err)
     launches += 1

@@ -392,13 +392,12 @@ def test_wkv6_kernel_matches_the_sequential_oracle_at_full_width(rnd):
 
 @pytest.mark.requires_cuda
 def test_wkv6_chunked_kernel_over_a_long_prompt(rnd):
-    """rwkv6-3b's heads at B 2 over 2048 tokens (64 chunks of 32, value
-    blocks of 16 columns by the plan) from a nonzero state, against the
-    token-by-token recurrence."""
+    """rwkv6-3b's heads at B 2 over 2048 tokens (64 chunks of 32, staged
+    by cp.async) from a nonzero state, against the token-by-token
+    recurrence."""
     r, k, v, logw, u, st = _wkv_inputs(rnd, 2, 2048, 40, 64, torch.bfloat16)
-    sms = dec_ops.sm_count(r.device)
-    plan = wk_ops.chunk_plan(2, 40, 64, 2, r.stride(), True, sms=sms)
-    assert plan.staging == "cp.async" and plan.ctas >= 2 * sms
+    plan = wk_ops.chunk_plan(2, 40, 64, 2, r.stride(), True)
+    assert plan.staging == "cp.async" and plan.ctas == 2 * 40
     y_ref, st_ref = wk_ops.wkv6_sequential(r, k, v, logw, u, st)
     before = wk_ops.launches
     y, _ = wk_ops.wkv6(r, k, v, logw, u, st, chunk=32)
@@ -409,21 +408,19 @@ def test_wkv6_chunked_kernel_over_a_long_prompt(rnd):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", list(WKV_DTYPES))
-def test_wkv6_chunked_kernel_at_each_value_block(rnd, dtype):
-    """Every value block the kernel is built for at N 64 and 32 (a warp a
-    16-column slice; blocks under 64 columns split the keys among warps
-    too), at chunks 32, 8 and 24 (a chunk that leaves 8 of the 32 padded
-    positions empty), against the chunked plain version."""
+def test_wkv6_chunked_kernel_at_each_head_dim(rnd, dtype):
+    """Every head dim the kernel is built for (a warp a 16-column value
+    slice; N 32 and 16 split the keys among warps too), at chunks 32, 8,
+    24 and 16 (24 leaves 8 of the 32 padded positions empty), against the
+    chunked plain version."""
     dt, _ = WKV_DTYPES[dtype]
-    for n, s, chunk in ((64, 64, 32), (64, 64, 8), (32, 48, 24)):
-        for mv in wk_ops.VALUE_BLOCKS[n]:
-            r, k, v, logw, u, st = _wkv_inputs(rnd, 3, s, 5, n, dt)
-            y_ref, st_ref = wk_ops.wkv6_chunked_ref(r, k, v, logw, u, st,
-                                                    chunk)
-            y, _ = wk_ops.wkv6(r, k, v, logw, u, st, chunk=chunk,
-                               value_block=mv)
-            torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
-            torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
+    for n, s, chunk in ((64, 64, 32), (64, 64, 8), (32, 48, 24),
+                        (16, 48, 16)):
+        r, k, v, logw, u, st = _wkv_inputs(rnd, 3, s, 5, n, dt)
+        y_ref, st_ref = wk_ops.wkv6_chunked_ref(r, k, v, logw, u, st, chunk)
+        y, _ = wk_ops.wkv6(r, k, v, logw, u, st, chunk=chunk)
+        torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.requires_cuda

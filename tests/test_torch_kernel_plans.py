@@ -52,28 +52,27 @@ def _strides(s, h, width):
 
 
 WKV6_PLANS = [
-    # (B, H, N, itemsize, strides, aligned) -> (value block, staging, CTAs,
-    # threads)
+    # (B, H, N, itemsize, strides, aligned) -> (staging, CTAs, threads)
     ((28, 40, 64, 2, _strides(64, 40, 64), True),
-     (64, "cp.async", 1120, 128)),            # rwkv6-3b's prefill
+     ("cp.async", 1120, 128)),                # rwkv6-3b's prefill
     ((28, 40, 64, 4, _strides(64, 40, 64), True),
-     (64, "cp.async", 1120, 128)),
+     ("cp.async", 1120, 128)),
     ((4, 40, 64, 2, _strides(2048, 40, 64), True),
-     (32, "cp.async", 320, 128)),             # the long prompt, B 4
+     ("cp.async", 160, 128)),                 # the long prompt, B 4
     ((2, 40, 64, 2, _strides(2048, 40, 64), True),
-     (16, "cp.async", 320, 128)),             # B 2: the smallest block
+     ("cp.async", 80, 128)),
     ((3, 5, 16, 2, _strides(64, 5, 24), True),
-     (16, "cp.async", 15, 64)),               # N 16: two warps, keys halved
+     ("cp.async", 15, 64)),                   # N 16: two warps, keys halved
     ((3, 5, 32, 4, _strides(64, 5, 32), True),
-     (16, "cp.async", 30, 128)),
+     ("cp.async", 15, 128)),                  # N 32: keys halved too
     ((2, 3, 64, 2, _strides(64, 3, 64), False),
-     (16, "loads", 24, 128)),                 # a base off a 16-byte line
+     ("loads", 6, 128)),                      # a base off a 16-byte line
     ((2, 3, 64, 2, _strides(64, 3, 65), True),
-     (16, "loads", 24, 128)),                 # rows of 65 bf16
+     ("loads", 6, 128)),                      # rows of 65 bf16
     ((2, 3, 64, 4, _strides(64, 3, 66), True),
-     (16, "loads", 24, 128)),                 # rows of 66 fp32
+     ("loads", 6, 128)),                      # rows of 66 fp32
     ((2, 3, 64, 2, _strides(64, 3, 72), True),
-     (16, "cp.async", 24, 128)),              # rows of 72 bf16: 144 bytes
+     ("cp.async", 6, 128)),                   # rows of 72 bf16: 144 bytes
 ]
 
 
@@ -83,23 +82,18 @@ def test_wkv6_chunk_plan(args, want):
     assert tuple(plan) == want
 
 
-def test_wkv6_chunk_plan_fills_the_card_and_takes_overrides():
-    strides = _strides(64, 40, 64)
-    for b in (1, 2, 4, 7, 28, 64):
-        plan = wk_ops.chunk_plan(b, 40, 64, 2, strides, True, sms=132)
-        wider = [c for c in wk_ops.VALUE_BLOCKS[64] if c > plan.value_block]
-        # The widest block that still gives two CTAs an SM, or the
-        # narrowest where none does.
-        assert plan.ctas >= 264 or plan.value_block == 16
-        assert all(b * 40 * (64 // c) < 264 for c in wider)
-    assert wk_ops.chunk_plan(28, 40, 64, 2, strides, True,
-                             value_block=32).ctas == 2240
-    assert wk_ops.chunk_plan(4, 40, 64, 2, strides, True,
-                             sms=16).value_block == 64
+def test_wkv6_chunk_plan_owns_whole_heads():
+    """A CTA a (b, h) at every batch, with a warp a 16-column value slice
+    and at least two warps a CTA."""
+    for n in wk_ops.HEAD_DIMS:
+        for b in (1, 2, 4, 7, 28, 64):
+            plan = wk_ops.chunk_plan(b, 40, n, 2, _strides(64, 40, n), True)
+            assert plan.ctas == b * 40
+            assert plan.threads % (32 * (n // 16)) == 0
+            assert 64 <= plan.threads <= 128
 
 
-@pytest.mark.parametrize("n,value_block", [(48, None), (64, 48), (32, 64),
-                                           (16, 32)])
-def test_wkv6_chunk_plan_refuses(n, value_block):
+@pytest.mark.parametrize("n", [48, 8, 128, 0])
+def test_wkv6_chunk_plan_refuses(n):
     with pytest.raises(ValueError, match="wkv6"):
-        wk_ops.chunk_plan(2, 3, n, 2, _strides(64, 3, n), True, value_block)
+        wk_ops.chunk_plan(2, 3, n, 2, _strides(64, 3, max(n, 1)), True)
