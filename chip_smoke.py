@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      a long prompt (B 4, S 2048: 64 chunks), from a nonzero state; the
      chunked form's four products run on tensor cores in 3xTF32, so its
      operations are counted at the TF32 peak three times over (twice
-     where v holds bf16 values), the rest at fp32's.  The RG-LRU scan (fp32 only: the recurrence's
+     where v holds bf16 values), the rest at fp32's; the grouped GEMM's
+     fp32 tile (C > 8) is 3xTF32 too, its products counted at the TF32
+     peak three times over.  The RG-LRU scan (fp32 only: the recurrence's
      inputs and state are fp32 in the model) runs at recurrentgemma-9b's prefill
      (B 28, S 16, W 4096) and decode (S 1) shapes from a nonzero state and
      is held, on h and on the final state, to SUM_TOLERANCE's 1e-4 as
@@ -553,13 +555,25 @@ def kernel_checks(torch, ops):
                                         generator=gen)
             w = (wf / k_dim ** 0.5).to(dt)
             del wf
-            check("moe_gemm", dtype_name, (64, c, k_dim, n_dim),
-                  lambda: ops["moe_gemm"].grouped_gemm(x, w),
-                  lambda: ops["moe_gemm"].moe_gemm_ref(x, w),
+            mg = ops["moe_gemm"]
+            shape_note = (64, c, k_dim, n_dim)
+            if is_bf16 and c <= mg.DECODE_ROWS:
+                plan = mg.decode_plan(64, c, k_dim, n_dim,
+                                      mg.sm_count(x.device))
+                shape_note += (f"{plan.units} units of "
+                               f"{mg.DECODE_COLUMNS} columns on "
+                               f"{plan.ctas} CTAs",)
+            # The fp32 tile (C > 8) computes on the tensor cores in
+            # 3xTF32: three TF32 products for each fp32 one.
+            flops = 2 * 64 * c * k_dim * n_dim
+            if not is_bf16 and c > mg.DECODE_ROWS:
+                flops = {"tf32": 3 * flops}
+            check("moe_gemm", dtype_name, shape_note,
+                  lambda: mg.grouped_gemm(x, w),
+                  lambda: mg.moe_gemm_ref(x, w),
                   lambda: torch.bmm(x, w),
                   (x.numel() + w.numel() + 64 * c * n_dim) * e,
-                  2 * 64 * c * k_dim * n_dim,
-                  is_bf16 and (c, k_dim) == (8, 2048), long_sums=True)
+                  flops, is_bf16 and (c, k_dim) == (8, 2048), long_sums=True)
             del x, w
 
         # WKV6 at rwkv6-3b's heads (40 x 64) from a nonzero state: the

@@ -1,7 +1,8 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and device facts shared by the port's entry points."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -19,3 +20,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "device is available; pass device='cpu' to run the plain "
             "PyTorch path")
     return dev
+
+
+#: Streaming multiprocessors of the H100 SXM: the count the kernels' launch
+#: plans size for unless they are given the device's own (`sm_count`).
+SM_COUNT = 132
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once a device; the
+    read makes no host sync)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

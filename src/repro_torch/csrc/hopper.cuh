@@ -317,6 +317,21 @@ __device__ __forceinline__ void wgmma_m64n136k16_rs(float (&d)[68],
         "n"(TB));
 }
 
+// d[4] += A (64 x 16, M-major: the transpose bit of A) @ B (16 x 8,
+// K-major), both in shared memory, bf16 inputs and fp32 accumulators.
+__device__ __forceinline__ void wgmma_m64n8k16_ta(float (&d)[4], uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d[64] += A (64 x 16, K-major) @ B (16 x 128, N-major), fp32 accumulators.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {

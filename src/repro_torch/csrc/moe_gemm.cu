@@ -6,27 +6,53 @@
 // (src/repro/kernels/moe_gemm/moe_gemm.py), the product of the expert
 // dispatch buffer of models/moe.py.  The Pallas grid walks K as a sequential
 // "arbitrary" axis with an fp32 VMEM accumulator; here each CTA owns whole
-// output tiles and walks K itself, so nothing carries between CTAs.  Three
-// variants, chosen by capacity C and dtype:
+// output tiles and walks K itself, so nothing carries between CTAs and the
+// same inputs give the same bits.  Four variants, chosen by capacity C and
+// dtype:
 //
-//  * skinny (C <= 8, decode; both dtypes).  The step's work is reading every
-//    expert's weights once (3 x 64 x 2048 x 1024 bf16 = 805 MB a layer for
-//    olmoe-1b-7b): bound by bytes.  A CTA of 8 warps owns one expert, 8 rows
-//    and 32 x 16-byte column vectors (256 bf16 / 128 fp32 columns); each lane
-//    streams one 16-byte vector of w per K row and applies it to all 8 rows of
-//    x, which sit in shared memory.  The warps split K (warp i takes rows
-//    i, i + 8, ...), keep 8 loads in flight each, and their partial sums are
-//    added in a fixed order through shared memory, so results do not vary
-//    from run to run.
+//  * decode, bf16 (C <= 8; `moe_gemm_decode_launch`).  The step's work is
+//    reading every expert's weights once (3 x 64 x 2048 x 1024 bf16 = 805 MB
+//    a layer for olmoe-1b-7b): bound by bytes, ~0.08 ms a product at the
+//    card's 3.35 TB/s.  The operands are swapped so that w is the 64-row
+//    operand of the tensor cores, y_e^T [N x C] = w_e^T [N x K] x_e^T
+//    [K x C]: wgmma.m64n8k16 with A = a 64 (K) x 64 (N) box of w in shared
+//    memory, N-major (the transpose bit of A), and B = the expert's 8 rows
+//    of x, K-major (rows past C read as zeros).  A persistent grid of one
+//    CTA an SM walks work units of (expert, 64 columns), full K, in the
+//    order that `ops.decode_plan` gives (at olmoe's shapes the busiest SM
+//    reads 3 % above the mean); one producer thread keeps 8 TMA stages of
+//    8 KB of w in flight (72 KB an SM with x's boxes, over twice the SM's
+//    share of the card's memory rate times its latency; 128-byte swizzle,
+//    w evicted first from L2), across unit boundaries, so the epilogue of
+//    one unit overlaps the next unit's loads.  No arithmetic on the CUDA
+//    cores but the epilogue's casts.
+//  * skinny, fp32 (C <= 8).  A CTA of 8 warps owns one expert, 8 rows and
+//    32 x 16-byte column vectors (128 fp32 columns); each lane streams one
+//    16-byte vector of w per K row and applies it to all 8 rows of x, which
+//    sit in shared memory.  The warps split K and add their partial sums in
+//    a fixed order through shared memory.  (It beats torch.bmm; the tensor
+//    cores would need 3xTF32 at fp32's doubled bytes.)
 //  * TMA + wgmma (C > 8, bf16; prefill).  One CTA per (expert, 128
 //    columns) owns all C rows (row blocks of 256), so at C <= 256 each byte
 //    of w is read from device memory once; a producer thread keeps 4 TMA
 //    stages in flight and two warpgroups run wgmma.m64n128k16 on them (see
 //    the section below).  At olmoe-1b-7b's prefill (C = 224) it is bound by
 //    bytes: ~170 operations a byte of x, w and y, under the card's ~295.
-//  * SIMT tile (C > 8, fp32).  64 x 64 output tile, K in steps of 16, 4 x 4
-//    outputs per thread in fp32 FMA (fp32 stays out of the tensor cores: TF32
-//    would not hold the fp32 tolerance).
+//  * 3xTF32 tile (C > 8, fp32).  A 128 x 128 output tile a CTA, two CTAs
+//    an SM, K in stages of 32 staged by cp.async in a ring of 3 (row
+//    pitches padded so that the fragment loads hit no bank conflicts), 8
+//    warps of 64 x 32, and mma.sync.m16n8k8 in TF32 with the 3xTF32 split
+//    of tf32.cuh (~2^-20 relative a product).  Each 3xTF32 product starts
+//    from zero and is added to the accumulator on the CUDA cores: the
+//    tensor core truncates its own fp32 sums, an error that grows with K in
+//    an accumulator kept there to many times an fp32 FMA loop's, where
+//    this one stays near it.  Bound by the tensor cores' TF32 rate at
+//    three products for each fp32 one (~0.36 ms at olmoe's prefill,
+//    against ~0.21 by bytes).  A warp's m16 tiles interleave with its
+//    neighbour's (rows 16 (wm + 2i)), so a tile with rows past C (C = 224 =
+//    1.75 x 128) idles both warps alike, and they skip the products of m16
+//    tiles wholly past C.  The grid runs an expert's row tiles of one
+//    column block side by side, so w comes from L2 after its first read.
 //
 // K and N must be multiples of 8 so that every 16-byte vector is wholly
 // inside or wholly outside the matrix (and every TMA stride a multiple of
@@ -34,12 +60,14 @@
 // kernels mask the ragged edges of C, K and N tiles.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace repro;
 
-// A 16-byte vector of T: raw load and conversion to floats.
+// A 16-byte vector of T: raw load and conversion to floats (fp32 only: the
+// skinny kernel's one type).
 template <typename T>
 struct Vec16;
 
@@ -61,27 +89,8 @@ struct Vec16<float> {
   }
 };
 
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  using Raw = uint4;
-  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ static Raw zero() { return make_uint4(0, 0, 0, 0); }
-  __device__ __forceinline__ static void unpack(const Raw& v, float (&o)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
-
 // ---------------------------------------------------------------------------
-// Skinny variant (C <= 8)
+// Skinny variant (C <= 8, fp32)
 // ---------------------------------------------------------------------------
 
 constexpr int kSkinnyRows = 8;     // rows of x per CTA
@@ -180,6 +189,112 @@ __global__ void __launch_bounds__(kSkinnyWarps * 32)
         for (int wi = 0; wi < kSkinnyWarps; ++wi) s += part[wi * kBN + col];
         y[(static_cast<long long>(e) * C + c0 + r) * N + nn] = from_f<T>(s);
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Decode variant (C <= 8, bf16): w streamed through wgmma.m64n8k16
+// ---------------------------------------------------------------------------
+//
+// A work unit is (expert, 64 output columns) over the whole of K.  Stage kt
+// holds a box of w (64 K rows x 64 columns, 128 B a row) and the expert's x
+// box (8 rows x 64 K, rows past C zero-filled), loaded by TMA through 3-D
+// tensor maps, so K past the end and columns past N read as zeros within
+// the expert.  The consumer warpgroup computes the unit's 64 x 8 tile of
+// y_e^T as A = the w box (N-major: 128-byte rows along N, 8-k groups
+// 1024 B apart, a k16 step 2 KB) times B = x (K-major: one 8-row swizzle
+// atom, a k16 step 32 B along the row), one stage's products left in
+// flight while the next stage is waited for.
+
+constexpr int kGvN = 64;                         // output columns a unit
+constexpr int kGvK = 64;                         // K a stage
+constexpr int kGvStages = 8;                     // 72 KB in flight an SM
+constexpr int kGvWBox = kGvK * kGvN * 2;         // 64 x 64 bf16, 8 KB
+constexpr int kGvXBox = 8 * kGvK * 2;            // 8 x 64 bf16, 1 KB
+constexpr int kGvStageBytes = kGvWBox + kGvXBox;
+constexpr int kGvConsumers = 128;                // one warpgroup
+constexpr int kGvThreads = kGvConsumers + 32;    // + the producer warp
+constexpr int kGvSmem = kGvStages * kGvStageBytes + 1024 + 2 * kGvStages * 8;
+
+__global__ void __launch_bounds__(kGvThreads, 1)
+    moe_gemm_decode_bf16(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         __nv_bfloat16* __restrict__ y, int E, int C, int K,
+                         int N) {
+  extern __shared__ unsigned char gv_smem[];
+  const uint32_t base = (smem_u32(gv_smem) + 1023u) & ~1023u;  // swizzle atoms
+  const uint32_t bars = base + kGvStages * kGvStageBytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kGvStages + s); };
+  const int col_blocks = (N + kGvN - 1) / kGvN;
+  const int units = E * col_blocks;
+  const int nk = (K + kGvK - 1) / kGvK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGvStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kGvConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kGvConsumers) {  // producer warp: one thread starts TMA
+    if (threadIdx.x != kGvConsumers) return;
+    uint64_t keep, stream;
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+                 : "=l"(keep));
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(stream));
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int e = u / col_blocks, n0 = (u % col_blocks) * kGvN;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kGvStages;
+        mbar_wait(empty(s), ((it / kGvStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), kGvStageBytes);
+        const uint32_t a = base + s * kGvStageBytes;
+        tma_load_3d(a, &wmap, full(s), n0, kt * kGvK, e, stream);
+        tma_load_3d(a + kGvWBox, &xmap, full(s), kt * kGvK, 0, e, keep);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int e = u / col_blocks, n0 = (u % col_blocks) * kGvN;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int prev = -1;  // the stage whose products may still be in flight
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kGvStages;
+      mbar_wait(full(s), (it / kGvStages) & 1);
+      const uint32_t a = base + s * kGvStageBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGvK / 16; ++kk)
+        wgmma_m64n8k16_ta(acc, gmma_desc(a + kk * 2048, kGvWBox, 1024),
+                          gmma_desc(a + kGvWBox + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (prev >= 0) mbar_arrive(empty(prev));
+      prev = s;
+    }
+    wgmma_wait<0>();
+    mbar_arrive(empty(prev));
+
+    // Accumulator layout of m64n8: warp w holds rows 16w + lane/4 (+8 for
+    // registers 2, 3) of y_e^T, that is columns n of y, and register r
+    // column 2 (lane % 4) + r % 2 of y_e^T, that is row c of y.
+    __nv_bfloat16* ye = y + static_cast<long long>(e) * C * N;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = n0 + 16 * warp + (lane >> 2) + 8 * (r >> 1);
+      const int c = 2 * (lane & 3) + (r & 1);
+      if (c < C && n < N)
+        ye[static_cast<long long>(c) * N + n] = __float2bfloat16(acc[r]);
     }
   }
 }
@@ -380,8 +495,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// A 3-D map over a row-major [d2, d1, d0] bf16 tensor with 64 x 64 boxes.
-bool make_map(CUtensorMap* map, const void* ptr, int d0, int d1, int d2) {
+// A 3-D map over a row-major [d2, d1, d0] bf16 tensor with boxes of 64
+// along d0 (128 bytes, one swizzle row) and `rows` along d1.
+bool make_map(CUtensorMap* map, const void* ptr, int d0, int d1, int d2,
+              int rows = 64) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
@@ -389,7 +506,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int d0, int d1, int d2) {
                               static_cast<cuuint64_t>(d2)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
                                  static_cast<cuuint64_t>(d0) * d1 * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -419,112 +536,191 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* y, int E, int C,
 }
 
 // ---------------------------------------------------------------------------
-// SIMT tile variant (C > 8, fp32)
+// 3xTF32 tile variant (C > 8, fp32)
 // ---------------------------------------------------------------------------
+//
+// Warp (wm, wn) of the 2 x 4 owns columns 32 wn .. 32 wn + 31 of the tile
+// (four n8 tiles) and the m16 tiles at rows 16 (wm + 2i), i < 4.  A stage
+// is x's 128 x 32 tile (row pitch 36: fragment loads at banks 4g + t) and
+// w's 32 x 128 tile (row pitch 136: banks 8t + g), each 16-byte chunk
+// copied by cp.async or zero-filled past C, K or N.
 
-constexpr int kSimtM = 64, kSimtN = 64, kSimtK = 16;
+constexpr int kTfM = 128, kTfN = 128, kTfK = 32, kTfStages = 3;
+constexpr int kTfAP = kTfK + 4;
+constexpr int kTfBP = kTfN + 8;
+constexpr int kTfStageFloats = kTfM * kTfAP + kTfK * kTfBP;
+constexpr int kTfSmem = kTfStages * kTfStageFloats * 4;  // 105 KB
+constexpr int kTfThreads = 256;
+static_assert(kTfM == kTfN, "x's and w's tiles copy as many 16-byte chunks");
 
-__global__ void __launch_bounds__(256)
-    moe_gemm_simt_f32(const float* __restrict__ x, const float* __restrict__ w,
-                      float* __restrict__ y, int C, int K, int N) {
-  __shared__ __align__(16) float As[kSimtK][kSimtM + 4];  // x tile, k-major
-  __shared__ __align__(16) float Bs[kSimtK][kSimtN + 4];
-
+__global__ void __launch_bounds__(kTfThreads, 2)
+    moe_gemm_tf32(const float* __restrict__ x, const float* __restrict__ w,
+                  float* __restrict__ y, int C, int K, int N) {
+  extern __shared__ __align__(16) float tf_smem[];
   const int e = blockIdx.z;
-  const int m0 = blockIdx.y * kSimtM, n0 = blockIdx.x * kSimtN;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int ar = tid >> 2, ak = (tid & 3) * 4;   // x: 64 rows x 4 vectors
-  const int bk = tid >> 4, bn = (tid & 15) * 4;  // w: 16 rows x 16 vectors
+  const int m0 = blockIdx.x * kTfM, n0 = blockIdx.y * kTfN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
   const float* xe = x + static_cast<long long>(e) * C * K;
   const float* we = w + static_cast<long long>(e) * K * N;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int nk = (K + kTfK - 1) / kTfK;
+  // The warp's m16 tiles that hold rows below C (warp-uniform).
+  const int mt = min(4, max(0, (C - m0 - 16 * wm + 31) / 32));
 
-  float acc[4][4];
+  auto load = [&](int slot, int kt) {
+    float* as = tf_smem + slot * kTfStageFloats;
+    float* bs = as + kTfM * kTfAP;
+    const int k0 = kt * kTfK;
+#pragma unroll
+    for (int j = 0; j < kTfM * kTfK / 4 / kTfThreads; ++j) {
+      const int i = tid + j * kTfThreads;
+      const int r = i / (kTfK / 4), q = i % (kTfK / 4) * 4;  // x: K/4 a row
+      const bool ok = m0 + r < C && k0 + q < K;
+      cp_async16_zfill(as + r * kTfAP + q,
+                       ok ? xe + static_cast<long long>(m0 + r) * K + k0 + q
+                          : x,
+                       ok);
+      const int kr = i >> 5, nq = (i & 31) * 4;    // w: 32 chunks a row
+      const bool okw = k0 + kr < K && n0 + nq < N;
+      cp_async16_zfill(bs + kr * kTfBP + nq,
+                       okw ? we + static_cast<long long>(k0 + kr) * N + n0 + nq
+                           : w,
+                       okw);
+    }
+  };
+
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kSimtK) {
-    const float4 a =
-        (m0 + ar < C && k0 + ak < K)
-            ? __ldg(reinterpret_cast<const float4*>(
-                  xe + static_cast<long long>(m0 + ar) * K + k0 + ak))
-            : zero;
-    const float4 b =
-        (k0 + bk < K && n0 + bn < N)
-            ? __ldg(reinterpret_cast<const float4*>(
-                  we + static_cast<long long>(k0 + bk) * N + n0 + bn))
-            : zero;
-    __syncthreads();  // previous tile consumed
-    As[ak + 0][ar] = a.x;
-    As[ak + 1][ar] = a.y;
-    As[ak + 2][ar] = a.z;
-    As[ak + 3][ar] = a.w;
-    *reinterpret_cast<float4*>(&Bs[bk][bn]) = b;
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kSimtK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
+  for (int s = 0; s < kTfStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTfStages - 2>();   // stage kt has landed
+    __syncthreads();                  // and stage kt - 1 is consumed
+    if (kt + kTfStages - 1 < nk)
+      load((kt + kTfStages - 1) % kTfStages, kt + kTfStages - 1);
+    cp_async_commit();
+    const float* as = tf_smem + (kt % kTfStages) * kTfStageFloats;
+    const float* bs = as + kTfM * kTfAP;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < kTfK; kk += 8) {
+      Split<2> b[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const float* p = bs + (kk + t4) * kTfBP + 32 * wn + 8 * j + g;
+        const float f[2] = {p[0], p[4 * kTfBP]};
+        b[j] = split(f);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i >= mt) break;
+        const float* p = as + (16 * (wm + 2 * i) + g) * kTfAP + kk + t4;
+        const float f[4] = {p[0], p[8 * kTfAP], p[4], p[8 * kTfAP + 4]};
+        const Split<4> a = split(f);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(t, t, a, b[j]);
+          add4(acc[i][j], t);
+        }
+      }
     }
   }
+  cp_async_wait_all();
 
-  const int n = n0 + tx * 4;
-  if (n >= N) return;
+  float* ye = y + static_cast<long long>(e) * C * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m < C)
-      *reinterpret_cast<float4*>(y + (static_cast<long long>(e) * C + m) * N +
-                                 n) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    if (i >= mt) break;
+    const int r = m0 + 16 * (wm + 2 * i) + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 32 * wn + 8 * j + 2 * t4;
+      if (n >= N) continue;
+      if (r < C)
+        *reinterpret_cast<float2*>(ye + static_cast<long long>(r) * N + n) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (r + 8 < C)
+        *reinterpret_cast<float2*>(ye + static_cast<long long>(r + 8) * N +
+                                   n) = make_float2(acc[i][j][2],
+                                                    acc[i][j][3]);
+    }
   }
 }
 
-template <typename T>
+cudaError_t launch_tf32(const void* x, const void* w, void* y, int E, int C,
+                        int K, int N, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gemm_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + kTfM - 1) / kTfM, (N + kTfN - 1) / kTfN, E);
+  moe_gemm_tf32<<<grid, kTfThreads, kTfSmem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), C, K, N);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_skinny(const void* x, const void* w, void* y, int E, int C,
                           int K, int N, cudaStream_t s) {
-  constexpr int kBN = 32 * Vec16<T>::kN;
+  constexpr int kBN = 32 * Vec16<float>::kN;
   const dim3 grid((N + kBN - 1) / kBN, (C + kSkinnyRows - 1) / kSkinnyRows, E);
-  constexpr int kSmem = skinny_smem_bytes<T>();
-  auto kern = moe_gemm_skinny<T>;
+  constexpr int kSmem = skinny_smem_bytes<float>();
+  auto kern = moe_gemm_skinny<float>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   kern<<<grid, kSkinnyWarps * 32, kSmem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      C, K, N);
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), C, K, N);
   return cudaGetLastError();
+}
+
+bool shape_ok(int E, int C, int K, int N) {
+  return E >= 1 && E <= 65535 && C >= 1 && K >= 1 && N >= 1 && K % 8 == 0 &&
+         N % 8 == 0;
 }
 
 }  // namespace
 
+// Every variant but the bf16 decode one: fp32 at any C, bf16 at C > 8.
 extern "C" int moe_gemm_launch(const void* x, const void* w, void* y,
                                int dtype, int E, int C, int K, int N,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E < 1 || E > 65535 || C < 1 || K < 1 || N < 1 || K % 8 || N % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype != repro::kFloat32 && dtype != repro::kBFloat16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (C <= kSkinnyRows) {
-    if (dtype == repro::kBFloat16)
-      return static_cast<int>(
-          launch_skinny<__nv_bfloat16>(x, w, y, E, C, K, N, s));
-    return static_cast<int>(launch_skinny<float>(x, w, y, E, C, K, N, s));
-  }
-  if (dtype == repro::kBFloat16)
+  if (!shape_ok(E, C, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == repro::kFloat32)
+    return static_cast<int>(C <= kSkinnyRows
+                                ? launch_skinny(x, w, y, E, C, K, N, s)
+                                : launch_tf32(x, w, y, E, C, K, N, s));
+  if (dtype == repro::kBFloat16 && C > kSkinnyRows)
     return static_cast<int>(launch_wgmma(x, w, y, E, C, K, N, s));
-  const dim3 grid((N + kSimtN - 1) / kSimtN, (C + kSimtM - 1) / kSimtM, E);
-  moe_gemm_simt_f32<<<grid, 256, 0, s>>>(static_cast<const float*>(x),
-                                         static_cast<const float*>(w),
-                                         static_cast<float*>(y), C, K, N);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 decode variant (C <= 8) on the `ctas` CTAs of ops.decode_plan.
+extern "C" int moe_gemm_decode_launch(const void* x, const void* w, void* y,
+                                      int E, int C, int K, int N, int ctas,
+                                      void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(E, C, K, N) || C > kSkinnyRows || ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap, x, K, C, E, 8) || !make_map(&wmap, w, N, K, E))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gemm_decode_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moe_gemm_decode_bf16<<<ctas, kGvThreads, kGvSmem, s>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(y), E, C, K, N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,14 +43,14 @@
 //      4. behind A's barrier, y^T += v^T A^T + bonus, stored from the
 //         accumulators (or, where keys are split, summed in shared memory
 //         first).
-//    Products are `mma.sync.m16n8k8` in TF32 with the 3xTF32 split
-//    (x = big + small, big*big + big*small + small*big: ~2^-20 relative
-//    error, where plain TF32 keeps three decimal digits); v in bf16 is
-//    exact in TF32, so its products drop a term.  The state slice feeds
-//    S^T (r e^cum_excl)^T straight from its accumulator registers: the
-//    products' k axis is taken in the order (0, 2, 4, 6, 1, 3, 5, 7) of each
-//    8 keys, the order in which an accumulator tile holds its columns, and
-//    the other operand is read in the same order.
+//    Products are `mma.sync.m16n8k8` in TF32 with the 3xTF32 split of
+//    tf32.cuh (x = big + small, big*big + big*small + small*big: ~2^-20
+//    relative error, where plain TF32 keeps three decimal digits); v in
+//    bf16 is exact in TF32, so its products drop a term.  The state slice
+//    feeds S^T (r e^cum_excl)^T straight from its accumulator registers:
+//    the products' k axis is taken in the order (0, 2, 4, 6, 1, 3, 5, 7) of
+//    each 8 keys, the order in which an accumulator tile holds its columns,
+//    and the other operand is read in the same order.
 //  * step (C == 1; the decode step and the prompt's per-token tail).  The
 //    state lives in registers: thread (m, g) holds S[n][m] for its N/G rows
 //    n, reads each once from device memory and writes each once at the end,
@@ -65,75 +65,21 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
+using repro::add4;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait_all;
+using repro::mma3;
+using repro::split;
+using repro::Split;
 using repro::to_f;
 
 constexpr int kThreads = 256;   // the step kernel's CTA
 constexpr int kMaxChunk = 32;   // the chunk kernel pads every chunk to it
-
-// --- asynchronous copies and 3xTF32 tensor-core products -------------------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x = big + small: big is x cut to TF32's 10 mantissa bits (one LOP3), small
-// the exact rest, which the tensor core reads to its own top 10 bits.  The
-// product big*big + big*small + small*big then errs by ~2^-20 relative, where
-// cvt.rna.tf32 (several instructions on this target) would gain one bit.
-template <int K>
-struct Split {
-  uint32_t big[K], small[K];
-};
-
-template <int K>
-__device__ __forceinline__ Split<K> split(const float (&x)[K]) {
-  Split<K> s;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    s.big[i] = __float_as_uint(x[i]) & 0xffffe000u;
-    s.small[i] = __float_as_uint(x[i] - __uint_as_float(s.big[i]));
-  }
-  return s;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// a b at fp32 accuracy: big * big into `hi`, the cross terms into `lo`
-// (two accumulators, so that a run of products forms two short dependency
-// chains; the caller adds them).  EXACT_A: a is exactly TF32 (bf16 values),
-// so its small part is zero and one cross term drops.
-template <bool EXACT_A = false>
-__device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
-                                     const Split<4>& a, const Split<2>& b) {
-  if constexpr (!EXACT_A) mma_tf32(lo, a.small, b.big);
-  mma_tf32(lo, a.big, b.small);
-  mma_tf32(hi, a.big, b.big);
-}
-
-__device__ __forceinline__ void add4(float (&d)[4], const float (&x)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += x[i];
-}
 
 // 2^x on the SFU (relative error ~2^-22).
 __device__ __forceinline__ float ex2(float x) {

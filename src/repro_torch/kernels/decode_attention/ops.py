@@ -14,12 +14,12 @@ combine kernel."""
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch._device import SM_COUNT, sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, rows_i32)
@@ -32,19 +32,9 @@ combine_launches = 0
 #: Query heads one call takes per KV head (a CTA holds 8; larger groups
 #: take more CTAs).
 MAX_GROUP = 32
-#: Streaming multiprocessors of the H100 SXM: the count `split_plan` sizes
-#: for unless it is given the device's own (`sm_count`).
-SM_COUNT = 132
 #: Least keys a split holds, and the granule of a split's length.
 MIN_SPLIT_KEYS = 256
 SPLIT_GRANULE = 64
-
-
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (read once a device; the
-    read makes no host sync)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def split_plan(b: int, kvh: int, s: int,

@@ -270,10 +270,14 @@ GEMM_DTYPES = {"float32": (torch.float32, 1e-4),
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", list(GEMM_DTYPES))
 def test_moe_gemm_kernel_matches_plain(rnd, dtype):
-    """Every variant (skinny C <= 8, tile C > 8) with ragged C, K and N
-    edges, and olmoe-1b-7b's decode and prefill products.  The bf16 tile
-    (TMA + wgmma) at one to four m64 tiles and two row blocks (C = 300),
-    with N off its 128-column tile and K off its 64-deep stage."""
+    """Every variant (decode / skinny C <= 8, tile C > 8) with ragged C, K
+    and N edges, and olmoe-1b-7b's decode and prefill products.  The bf16
+    decode variant at every C from 1 to 8 with N off its 64-column unit
+    (136, 200) and K off its 64-deep stage (40, 2056), at E = 1 (3 or 4
+    units) and E = 130 (more units than SMs).  The bf16 tile (TMA
+    + wgmma) at one to four m64 tiles and two row blocks (C = 300), with N
+    off its 128-column tile and K off its 64-deep stage; the fp32 tile
+    (3xTF32) at C 9, 33, 224 and 300 with K off its 32-deep stage."""
     dt, tol = GEMM_DTYPES[dtype]
     before = mg_ops.launches
     shapes = ((3, 5, 40, 48), (2, 33, 32, 48), (4, 96, 64, 64),
@@ -281,13 +285,33 @@ def test_moe_gemm_kernel_matches_plain(rnd, dtype):
               (64, 8, 2048, 1024), (64, 8, 1024, 2048), (64, 224, 2048, 1024),
               (64, 224, 1024, 2048)) + tuple(
                   (3, c, k, n) for c in (9, 32, 40, 224, 300)
-                  for k, n in ((2048, 200), (40, 136)))
+                  for k, n in ((2048, 200), (40, 136))) + tuple(
+                  (e, c, k, n) for c in range(1, 9)
+                  for e, k, n in ((1, 40, 136), (130, 2056, 200))) + tuple(
+                  (2, c, 2056, 136) for c in (9, 33, 224, 300))
     for e, c, k, n in shapes:
         x, w = rnd((e, c, k), dt), rnd((e, k, n), dt, k ** -0.5)
         torch.testing.assert_close(mg_ops.grouped_gemm(x, w),
                                    mg_ops.moe_gemm_ref(x, w), rtol=tol,
                                    atol=tol)
     assert mg_ops.launches == before + len(shapes)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(GEMM_DTYPES))
+def test_moe_gemm_gives_the_same_bits_twice(rnd, dtype):
+    """No variant sums in an order that varies from call to call: the bf16
+    decode variant (persistent units), the fp32 skinny one, and both tiles
+    at C > 8."""
+    dt, _ = GEMM_DTYPES[dtype]
+    before = mg_ops.launches
+    shapes = ((64, 8, 2048, 1024), (130, 3, 2056, 200), (64, 224, 2048, 1024),
+              (3, 300, 40, 136))
+    for e, c, k, n in shapes:
+        x, w = rnd((e, c, k), dt), rnd((e, k, n), dt, k ** -0.5)
+        first = mg_ops.grouped_gemm(x, w)
+        assert torch.equal(first, mg_ops.grouped_gemm(x, w)), (e, c, k, n)
+    assert mg_ops.launches == before + 2 * len(shapes)
 
 
 @pytest.mark.requires_cuda

@@ -5,6 +5,7 @@ is decided here in Python and tested on the CPU."""
 
 import pytest
 
+from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rwkv6 import ops as wk_ops
 
@@ -97,3 +98,62 @@ def test_wkv6_chunk_plan_owns_whole_heads():
 def test_wkv6_chunk_plan_refuses(n):
     with pytest.raises(ValueError, match="wkv6"):
         wk_ops.chunk_plan(2, 3, n, 2, _strides(64, 3, max(n, 1)), True)
+
+
+# --- grouped GEMM, bf16 decode variant -----------------------------------------
+
+# (E, C, K, N): olmoe-1b-7b's decode gate/up and down, one expert, ragged N
+# (off the 64-column unit), more units than SMs, one row.
+DECODE_SHAPES = [(64, 8, 2048, 1024), (64, 8, 1024, 2048), (1, 8, 2048, 1024),
+                 (3, 5, 40, 136), (2, 8, 2056, 200), (130, 3, 40, 136),
+                 (1, 1, 8, 8)]
+
+
+def _columns_a_cta(plan, n):
+    """Columns of w (each K deep) that each CTA of the plan reads."""
+    per_cta = [0] * plan.ctas
+    for cta, _, _, cols in mg_ops.decode_units(plan, n):
+        per_cta[cta] += cols
+    return per_cta
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_moe_gemm_decode_plan_covers_every_column_once(shape):
+    e, c, k, n = shape
+    plan = mg_ops.decode_plan(e, c, k, n)
+    assert plan.units == e * -(-n // mg_ops.DECODE_COLUMNS)
+    assert plan.ctas == min(plan.units, mg_ops.SM_COUNT)
+    seen = {}
+    for cta, ex, n0, cols in mg_ops.decode_units(plan, n):
+        assert 0 <= cta < plan.ctas and 0 <= ex < e
+        assert 0 < cols <= mg_ops.DECODE_COLUMNS
+        for col in range(n0, n0 + cols):
+            seen[(ex, col)] = seen.get((ex, col), 0) + 1
+    assert seen == {(ex, col): 1 for ex in range(e) for col in range(n)}
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_moe_gemm_decode_plan_balances_olmoe(n):
+    """At olmoe-1b-7b's decode products on 132 SMs, every SM holds one
+    CTA and the busiest reads within 4 % of the mean bytes an SM."""
+    plan = mg_ops.decode_plan(64, 8, 3072 - n, n, 132)
+    assert plan == (64 * n // 64, 132)
+    per_cta = _columns_a_cta(plan, n)
+    assert max(per_cta) <= 1.04 * sum(per_cta) / len(per_cta)
+
+
+def test_moe_gemm_decode_plan_takes_the_cards_sm_count():
+    """The grid is one CTA an SM of the card it is given, and no more CTAs
+    than units."""
+    assert mg_ops.decode_plan(64, 8, 2048, 1024, 114) == (1024, 114)
+    assert mg_ops.decode_plan(1, 8, 2048, 1024) == (16, 16)
+    assert mg_ops.decode_plan(1, 1, 8, 8, 1) == (1, 1)
+
+
+@pytest.mark.parametrize("shape", [(64, 9, 2048, 1024), (64, 0, 2048, 1024),
+                                   (0, 8, 2048, 1024), (64, 8, 2044, 1024),
+                                   (64, 8, 2048, 1020), (65536, 8, 64, 64),
+                                   (64, 8, 0, 1024)])
+def test_moe_gemm_decode_plan_refuses(shape):
+    with pytest.raises(ValueError, match="moe_gemm decode"):
+        mg_ops.decode_plan(*shape)

@@ -69,6 +69,36 @@ def test_grouped_gemm_matches_pallas(e, c, d, f):
     assert mg_ops.launches == before       # the CPU path launches nothing
 
 
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values cut to TF32's 10 mantissa bits, as the tensor core
+    reads an fp32 register (the low 13 bits dropped)."""
+    return (t.view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def test_3xtf32_split_holds_the_fp32_tolerance():
+    """Why the card's fp32 tile (3xTF32 on the tensor cores) is held to
+    fp32's 1e-4 of 1 + |ref|: x = big + small with big = tf32(x) and small
+    read as tf32(x - big); big*big + big*small + small*big, each product
+    exact in fp32 and summed in fp32, over K = 2048 at olmoe's weight
+    scale, stays within it of the float64 product, as plain fp32 does.
+    One TF32 product alone does not."""
+    rng = np.random.default_rng(0)
+    e, c, k, n = 4, 16, 2048, 64
+    x = _t(rng.standard_normal((e, c, k)))
+    w = _t(rng.standard_normal((e, k, n)) / np.sqrt(k))
+    ref = torch.bmm(x.double(), w.double())
+    xb, wb = _tf32(x), _tf32(w)
+    xs, ws = _tf32(x - xb), _tf32(w - wb)
+    three = torch.bmm(xs, wb) + torch.bmm(xb, ws) + torch.bmm(xb, wb)
+    one = torch.bmm(xb, wb)
+
+    def err(y):
+        return ((y.double() - ref).abs() / (1 + ref.abs())).max().item()
+    assert err(three) <= 1e-4 / 10          # within a tenth of it
+    assert err(torch.bmm(x, w)) <= 1e-4 / 10
+    assert err(one) > 1e-4
+
+
 def test_grouped_gemm_ref_keeps_bf16_and_accumulates_in_fp32():
     rng = np.random.default_rng(0)
     x = _t(rng.standard_normal((2, 5, 64))).bfloat16()
