@@ -77,21 +77,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      for 8 rounds as `serve.py --mode engine` does, with per-pull prefill
      and decode times against the decode step's floor (the bytes it must
      read: weights, and for rwkv6 and recurrentgemma the recurrent state
-     read and written, and recurrentgemma's attention caches read).
-     Energy is the Jetson Orin analytical board model applied to measured
-     wall time: modelled, not measured on this card;
-  5. after each path, its launch counters equal what the path implies
-     (counters set to 0 just before the path and read just after; every
+     read and written, and recurrentgemma's attention caches read).  The
+     fused decode replays one CUDA graph a step: before the counted run
+     the engine captures its graph at every batch arm (capture time
+     printed).  Energy is the Jetson Orin analytical board model applied
+     to measured wall time: modelled, not measured on this card;
+  5. after each path, its kernel executions equal what the path implies
+     (counters set to 0 just before the path and read just after, plus
+     each graph's replays in the run times its per-kernel tally; every
      kernel off the path at 0; the 128-slot caches never launch decode
      attention's combine kernel; every prefill-attention launch is the
-     tensor-core kernel's, `tc_launches`), then a torch.profiler breakdown
-     of one more full-width generate (kernel time by name, device busy
-     share);
+     tensor-core kernel's, `tc_launches`); then graph-replayed against
+     eager-loop decode (`decode_impl="loop"`) on the same params and
+     prompts at batch 4 and 28: tokens equal, decode step times in turns
+     (graph, loop, loop, graph); then a torch.profiler breakdown of one
+     more full-width generate (kernel time by name, device busy share;
+     the decode window from the first graph launch: its busy share, the
+     host's launches a step, and `kernel_in_path` per kernel inside the
+     graph and in the prefill);
   6. after llama3.2-1b's path, one profiled generate on a second engine
      with the same params over a 4096-slot cache (batch 4, 4000-token
-     prompts): decode attention splits the KV axis there, and the launch
-     counts of that generate must show the combine kernel once a layer a
-     decode step.
+     prompts): decode attention splits the KV axis there, and the kernel
+     executions of that generate (its graph's replays included) must show
+     the combine kernel once a layer a decode step.
 
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the four
@@ -160,6 +168,11 @@ LONG_BATCH, LONG_SEQ_LEN, LONG_PROMPT = 4, 4096, 4000
 #: Phase 2's long WKV6 prompt (rwkv6 is served with long contexts): at
 #: batch LONG_BATCH, 64 chunks of 32.
 WKV6_LONG_PROMPT = 2048
+#: CUDA runtime and driver calls by which the host puts work on the
+#: device, as the profiler names them (the decode window's host launches).
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
 WKV6_LIBRARY_NOTE = ("no single PyTorch call computes the WKV6 recurrence "
                      "(no library kernel for it), so library_ms is null")
 RGLRU_LIBRARY_NOTE = ("no single PyTorch call computes a first-order linear "
@@ -880,6 +893,14 @@ def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
     warm = [rng.integers(1, cfg.vocab_size, prompt_len).astype(np.int32)
             for _ in range(MAX_BATCH)]
     toks, _ = engine.generate(warm, NEW_TOKENS)
+    space = rt.make_space(f"engine/{arch}")
+    for b in space.grid("batch"):
+        if b not in engine.decode_graphs:
+            engine.generate(warm[:b], NEW_TOKENS)
+        g = engine.decode_graphs[b]
+        say(f"graph capture {arch} b={b}: capture_s={g.capture_s:.6f} "
+            f"(2 eager warm-up steps + capture) kernels_a_replay="
+            f"{sum(g.tally.values())} tally={g.tally}")
     cache = bundle.init_cache(2, 32, "cuda")
     logits, _ = bundle.prefill(params, torch.from_numpy(
         np.stack(warm[:2])).long().cuda(), cache)
@@ -891,15 +912,15 @@ def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
             not bool(torch.isfinite(logits).all().item()):
         fail(f"{arch}: full-width prefill logits are not finite")
 
-    reset_counts(ops)
-    space = rt.make_space(f"engine/{arch}")
-    cm = rt.CostModel(alpha=0.5)
-    ref_obs = env.pull(space.values(space.corner()), 0)
-    cm = cm.with_reference(ref_obs.energy, ref_obs.latency)
-    policy = rt.make_policy("camel", prior_mu=1.0, prior_sigma=0.1)
-    res = rt.Controller(space, policy, cm, seed=0).run(env, ROUNDS)
-    torch.cuda.synchronize()
-    counts = read_counts(ops)
+    def drive():
+        cm = rt.CostModel(alpha=0.5)
+        ref_obs = env.pull(space.values(space.corner()), 0)
+        cm = cm.with_reference(ref_obs.energy, ref_obs.latency)
+        policy = rt.make_policy("camel", prior_mu=1.0, prior_sigma=0.1)
+        return ref_obs, rt.Controller(space, policy, cm, seed=0).run(
+            env, ROUNDS)
+
+    counts, (ref_obs, res) = counted_run(torch, ops, engine, drive)
 
     pulls = [("ref", space.values(space.corner()), ref_obs)] + \
         [(r.t, r.knobs, r.obs) for r in res.records]
@@ -929,14 +950,27 @@ def reset_counts(ops):
     ops["flash_attention"].tc_launches = 0
 
 
-def read_counts(ops):
-    """Each kernel's launches, decode attention's combine launches and
-    prefill attention's tensor-core (bf16) launches."""
-    counts = {name: m.launches for name, m in ops.items()}
-    counts["decode_attention_combine"] = \
-        ops["decode_attention"].combine_launches
-    counts["flash_attention_tc"] = ops["flash_attention"].tc_launches
-    return counts
+def counted_run(torch, ops, engine, run):
+    """Call `run()` with every launch counter at 0 and return (the kernel
+    executions it made, its result).  A counter counts host calls that
+    launched a kernel, and a graph replay makes none, so the executions
+    are the counters' change plus, for each of the engine's graphs, its
+    replays in the run times its per-kernel tally.  A capture inside the
+    run would count calls that execute nothing, so it fails."""
+    from repro_torch.kernels import launch_counts
+    graphs = dict(engine.decode_graphs)
+    replays = {b: g.replays for b, g in graphs.items()}
+    reset_counts(ops)
+    result = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if engine.decode_graphs.keys() != graphs.keys():
+        fail(f"{engine.bundle.name}: a graph was captured inside a counted "
+             f"run (batches {sorted(engine.decode_graphs)})")
+    for b, g in graphs.items():
+        for name, n in g.tally.items():
+            counts[name] += (g.replays - replays[b]) * n
+    return counts, result
 
 
 def expected_launches(family, cfg, n_generate, prompt_len):
@@ -976,8 +1010,45 @@ def expected_launches(family, cfg, n_generate, prompt_len):
     return counts
 
 
+def graph_vs_loop(rt, engine, prompts, family, cfg):
+    """The fused engine (a graph replay a step) against an eager-loop
+    engine on the same params and prompts, at batch 4 and MAX_BATCH:
+    tokens equal, decode step times (host clock over the decode, which
+    ends in a sync) in turns graph, loop, loop, graph."""
+    import numpy as np
+    arch = engine.bundle.name
+    loop = rt.InferenceEngine(engine.bundle, engine.params,
+                              max_batch=MAX_BATCH, max_seq_len=MAX_SEQ_LEN,
+                              prompt_bucket=engine.prompt_bucket,
+                              decode_impl="loop", device="cuda")
+    for b in (4, MAX_BATCH):
+        ps = prompts[:b]
+        loop.generate(ps, NEW_TOKENS)                    # warm-up
+        steps = {"graph": [], "loop": []}
+        toks = {}
+        for impl in ("graph", "loop", "loop", "graph"):
+            out, st = (engine if impl == "graph" else loop).generate(
+                ps, NEW_TOKENS)
+            steps[impl].append(1e3 * st.decode_s / NEW_TOKENS)
+            if impl in toks and not np.array_equal(toks[impl], out):
+                fail(f"{arch} b={b}: {impl} decode gave other tokens on a "
+                     "second run")
+            toks[impl] = out
+        if not np.array_equal(toks["graph"], toks["loop"]):
+            fail(f"{arch} b={b}: graph-replayed tokens differ from the "
+                 "eager loop's")
+        g, lo = statistics.mean(steps["graph"]), statistics.mean(steps["loop"])
+        say(f"decode step {arch} b={b}: graph_ms={g:.4f} loop_ms={lo:.4f} "
+            f"loop_over_graph={lo / g:.2f} runs graph="
+            f"{[round(t, 4) for t in steps['graph']]} loop="
+            f"{[round(t, 4) for t in steps['loop']]} decode_floor_ms="
+            f"{weight_read_floor_ms(family, cfg, b):.4f} tokens_equal=True")
+
+
 def profile_generate(torch, engine, prompts):
-    """Kernel time by name over one full-width generate at batch 28."""
+    """Kernel time by name over one full-width generate at batch 28, and
+    the decode window's share of it: from the first graph launch to the
+    end of the last kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -999,13 +1070,64 @@ def profile_generate(torch, engine, prompts):
         f"per_forward_pass={n_launch / (1 + NEW_TOKENS):.1f}")
     say(events.table(sort_by="self_device_time_total", row_limit=15,
                      max_name_column_width=60))
-    # The port's own kernels as the path runs them (caches as they are
-    # there, not as a timing loop leaves them).
-    for ev in kernels:
-        if any(k in ev.key for k in PORT_KERNEL_NAMES):
-            say(f"kernel_in_path {engine.bundle.name} {ev.key[:70]}: "
-                f"launches={ev.count} device_us_per_launch="
-                f"{ev.self_device_time_total / ev.count:.3f}")
+    decode_window(prof, engine, len(prompts))
+
+
+def decode_window(prof, engine, batch):
+    """From a profiled generate: the decode window (from the host's first
+    graph launch to the end of the last kernel), its device-busy share,
+    the host's launches a step by call, and `kernel_in_path` for the
+    port's kernels inside the graph (window=decode) and before it
+    (window=prefill; caches as the path leaves them, not as a timing loop
+    does)."""
+    import collections
+    from torch.autograd import DeviceType
+    name = engine.bundle.name
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name in HOST_LAUNCHES]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    starts = [e.time_range.start for e in host if e.name == "cudaGraphLaunch"]
+    if not starts:
+        fail(f"{name}: the profiled generate launched no CUDA graph")
+    start = min(starts)
+    decode = [e for e in kernels if e.time_range.start >= start]
+    calls = collections.Counter(e.name for e in host
+                                if e.time_range.start >= start)
+    if decode:
+        end = max(e.time_range.end for e in decode)
+        busy = sum(e.time_range.elapsed_us() for e in decode)
+        say(f"decode window {name} b={batch}: window_s="
+            f"{(end - start) / 1e6:.6f} device_busy_s={busy / 1e6:.6f} "
+            f"device_busy_share={busy / (end - start):.4f} kernels_a_step="
+            f"{len(decode) / NEW_TOKENS:.1f} host_launches_a_step="
+            f"{sum(calls.values()) / NEW_TOKENS:.3f} host_calls="
+            f"{dict(calls)}")
+        by_name = collections.defaultdict(list)
+        for e in decode:
+            by_name[e.name].append(e.time_range.elapsed_us())
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+        for kname, us in top:
+            say(f"decode_top {name} b={batch} {kname[:70]}: share="
+                f"{sum(us) / busy:.4f} us_a_step={sum(us) / NEW_TOKENS:.1f}"
+                f" launches_a_step={len(us) / NEW_TOKENS:.1f}")
+    else:
+        say(f"decode window {name} b={batch}: the profiler recorded no "
+            f"kernel inside the graph replays (busy share not measured); "
+            f"host_launches_a_step={sum(calls.values()) / NEW_TOKENS:.3f} "
+            f"host_calls={dict(calls)}")
+    for window, evs in (("decode", decode),
+                        ("prefill", [e for e in kernels
+                                     if e.time_range.start < start])):
+        per = collections.defaultdict(list)
+        for e in evs:
+            if any(k in e.name for k in PORT_KERNEL_NAMES):
+                per[e.name].append(e.time_range.elapsed_us())
+        for kname, us in sorted(per.items()):
+            say(f"kernel_in_path {name} window={window} {kname[:70]}: "
+                f"launches={len(us)} device_us_per_launch="
+                f"{sum(us) / len(us):.3f}")
 
 
 def long_cache_generate(torch, rt, ops, engine, cfg):
@@ -1033,9 +1155,8 @@ def long_cache_generate(torch, rt, ops, engine, cfg):
         f"{LONG_PROMPT} tokens, cache {LONG_SEQ_LEN} slots, split plan "
         f"{plan}: prefill_s={st.prefill_s:.6f} decode_s={st.decode_s:.6f} "
         f"decode_step_ms={1e3 * st.decode_s / NEW_TOKENS:.4f}")
-    reset_counts(ops)
-    profile_generate(torch, long_engine, prompts)
-    counts = read_counts(ops)
+    counts, _ = counted_run(torch, ops, long_engine, lambda: profile_generate(
+        torch, long_engine, prompts))
     expected = expected_launches("transformer", cfg, 1, LONG_PROMPT)
     expected["decode_attention_combine"] = cfg.n_layers * NEW_TOKENS
     say(f"launch counts long cache {cfg.name} over 1 generate call "
@@ -1113,6 +1234,7 @@ def main() -> None:
             fail(f"{arch}: launch counts {counts} != expected {expected}")
         for name in totals:
             totals[name] += counts[name]
+        graph_vs_loop(rt, engine, prompts, engine.bundle.family, cfg)
         profile_generate(torch, engine, prompts)
         if arch == "llama3.2-1b":
             long_cache_generate(torch, rt, ops, engine, cfg)

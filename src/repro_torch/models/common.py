@@ -10,7 +10,7 @@ Parameters are plain nested dicts of tensors with the reference's key
 names and its `[in, out]` weight layout (``x @ w``).  Dtype policy: params
 and activations in `cfg.dtype` (default bf16), softmax and logits in fp32.
 
-KV caches are written in place (`cache["k"][:, pos] = ...`) instead of
+KV caches are written in place (`index_copy_` at slot `pos`) instead of
 returned as fresh copies, which saves a full cache copy per layer.  A
 pooled cache therefore carries a previous call's entries; that is safe
 because every position a call reads was written by the same call or is
@@ -231,17 +231,32 @@ def kv_start_of(pad_mask: Tensor) -> Tensor:
     return (~pad_mask).sum(dim=1, dtype=torch.int32)
 
 
+def as_pos(pos, device) -> Tensor:
+    """A decode position (an int, or a 0-d integer tensor) as a 0-d int64
+    tensor on `device`.  A tensor already there is returned as it is, so a
+    captured decode step reads the position from device memory at every
+    replay and nothing in the step depends on its value on the host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64)
+    return torch.full((), pos, dtype=torch.int64, device=device)
+
+
 def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
-                     cache: Params, pos: int, ring: bool = False,
+                     cache: Params, pos, ring: bool = False,
                      pad_mask: Optional[Tensor] = None
                      ) -> Tuple[Tensor, Params]:
     """Decode-step attention: x [B,1,D], cache k/v [B,S,KVH,HD], pos (the
-    current token's global position).  The new K/V are written into the
-    cache in place, at `pos`, or with `ring=True` at slot `pos % S` of a
-    ring buffer of S == sliding_window slots (RoPE is applied before the
-    write, so positions stay global).  `pad_mask` ([B, P] bool, True =
-    real) invalidates left-pad prompt slots; positions >= P are always
-    valid.  Returns (attn output [B,1,D], cache).
+    current token's global position: an int or a 0-d integer tensor on
+    x's device, as the reference's traced `start_pos + i`).  The new K/V
+    are written into the cache in place, at `pos`, or with `ring=True` at
+    slot `pos % S` of a ring buffer of S == sliding_window slots (RoPE is
+    applied before the write, so positions stay global).  `pad_mask` ([B,
+    P] bool, True = real) invalidates left-pad prompt slots; positions >=
+    P are always valid.  Returns (attn output [B,1,D], cache).
+
+    Everything that reads `pos` is device arithmetic: the slot is written
+    with `index_copy_` at a one-element device index (indexing with a 0-d
+    tensor would read it on the host), so the step makes no host sync.
 
     With `attn_impl == "flash"` on a plain causal layer (no ring, no
     sliding window, no softcap) the attention runs through the
@@ -249,11 +264,11 @@ def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
     the naive masked softmax below, as in the reference."""
     b = x.shape[0]
     s_cache = cache["k"].shape[1]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, spec, x, positions)
-    slot = pos % s_cache if ring else pos
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+    pos = as_pos(pos, x.device)
+    q, k_new, v_new = _project_qkv(params, spec, x, pos.expand(b, 1))
+    slot = (torch.remainder(pos, s_cache) if ring else pos).reshape(1)
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
     k, v = cache["k"], cache["v"]
 
     # The reference's kernel route (`common.py:344-345`).
@@ -269,7 +284,7 @@ def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
         # Slot i holds global position pos - ((pos - i) mod S); it is valid
         # iff that position is inside the window and not negative.
         kpos = pos - torch.remainder(pos - idx, s_cache)
-        mask = kpos >= max(0, pos - s_cache + 1)
+        mask = kpos >= (pos - s_cache + 1).clamp_min(0)
     else:
         kpos = idx
         mask = idx <= pos

@@ -326,7 +326,7 @@ def init_cache(cfg: RGLRUConfig, batch: int, max_len: int,
 
 
 def _run(cfg: RGLRUConfig, params: Params, x: Tensor,
-         cache: Optional[Params], pos: Optional[int], mode: str,
+         cache: Optional[Params], pos: Optional[Tensor], mode: str,
          pad_mask: Optional[Tensor] = None,
          pos_offset: Optional[int] = None) -> Tensor:
     """mode: 'train' (no cache IO; the recurrent state starts from `cache`
@@ -395,13 +395,15 @@ def prefill(cfg: RGLRUConfig, params: Params, tokens: Tensor, cache: Params,
 
 
 def decode_step(cfg: RGLRUConfig, params: Params, token: Tensor,
-                cache: Params, pos: int,
-                attn_mask: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
-    """token: [B] int; pos: its global position.  `attn_mask` reaches the
+                cache: Params, pos, attn_mask: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Params]:
+    """token: [B] int; pos: its global position, an int or a 0-d integer
+    tensor on the device (`common.as_pos`).  `attn_mask` reaches the
     attention blocks only.  Returns (logits [B, V], cache updated in
     place)."""
     x = common.embed(params, token[:, None], scale_by_sqrt_dim=True)
-    x = _run(cfg, params, x, cache, pos, "decode", pad_mask=attn_mask)
+    x = _run(cfg, params, x, cache, common.as_pos(pos, token.device),
+             "decode", pad_mask=attn_mask)
     x = common.rmsnorm(params["final_norm"], x)
     logits = common.unembed(params, x, cfg.tie_embeddings)
     return logits[:, 0], cache

@@ -318,10 +318,11 @@ def prefill(cfg: RWKV6Config, params: Params, tokens: Tensor, cache: Params,
 
 
 def decode_step(cfg: RWKV6Config, params: Params, token: Tensor,
-                cache: Params, pos: int,
-                attn_mask: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
-    """token: [B] int.  `pos` and `attn_mask` are unused (the state is
-    position-free).  Returns (logits [B, V], cache updated in place)."""
+                cache: Params, pos, attn_mask: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Params]:
+    """token: [B] int.  `pos` (an int or a 0-d device tensor) and
+    `attn_mask` are unused (the state is position-free).  Returns (logits
+    [B, V], cache updated in place)."""
     del pos, attn_mask
     x = common.layernorm(params["ln0"], common.embed(params, token[:, None]))
     x = _run(cfg, params, x, cache, chunked=False)

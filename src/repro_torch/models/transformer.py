@@ -264,13 +264,15 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: Tensor,
 
 
 def decode_step(cfg: TransformerConfig, params: Params, token: Tensor,
-                cache: Params, pos: int,
-                attn_mask: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
-    """token: [B] int; pos: global position of `token`.  `attn_mask`
-    ([B, P] bool over global positions, True = real token) keeps
-    left-padded prompt slots masked; positions >= P are always valid.
-    Returns (logits [B, V], cache)."""
+                cache: Params, pos, attn_mask: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Params]:
+    """token: [B] int; pos: global position of `token`, an int or a 0-d
+    integer tensor on the device (`common.as_pos`; the engine's captured
+    step passes the latter).  `attn_mask` ([B, P] bool over global
+    positions, True = real token) keeps left-padded prompt slots masked;
+    positions >= P are always valid.  Returns (logits [B, V], cache)."""
     spec = cfg.attn_spec()
+    pos = common.as_pos(pos, token.device)
     x = common.embed(params, token[:, None])
     for i, lp in enumerate(params["layers"]):
         h = common.rmsnorm(lp["norm_attn"], x)

@@ -6,11 +6,16 @@ runs one batch through a model and turns the measured wall time into an
 `Observation`.
 
 * **Fused decode** (`decode_impl="fused"`, the default) keeps the whole
-  decode loop on the device: the greedy argmax runs on the device, tokens
-  go into a device `[B, steps]` buffer, and `generate` makes exactly one
-  device->host copy.  The steps are still launched one by one from
-  Python (CUDA graphs are later work).  `decode_impl="loop"` copies each
-  token to the host as it is made — the reference the fused path is held
+  decode loop on the device, the counterpart of the reference's jitted
+  `lax.fori_loop`: the greedy argmax runs on the device, tokens go into a
+  device `[B, steps]` buffer, and `generate` makes exactly one
+  device->host copy.  On CUDA one decode step is captured as a CUDA graph
+  per batch size (`DecodeGraph`) and each step is one replay plus the
+  token write: the step reads the token, the position and the pad mask
+  from static device buffers, so, as the reference's traced `start_pos`,
+  a new prompt length replays the same graph.  `decode_impl="loop"`
+  copies each token to the host as it is made and runs the step eagerly
+  with a Python position — the reference the fused path is held
   bit-identical to.
 * **Prompt bucketing** — padded prompt lengths are rounded up to
   `prompt_bucket` multiples, so a sweep over ragged prompts sees one
@@ -39,6 +44,7 @@ holds device time, not launch time.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Tuple
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels import launch_counts
 from repro_torch.models.registry import ModelBundle
 from repro_torch.obs import tracing as obslog
 from repro_torch.platform.base import BaseEnvironment, DVFSPlatform
@@ -71,12 +78,106 @@ class EngineStats:
         return self.tokens_out / self.decode_s if self.decode_s > 0 else 0.0
 
 
+@contextlib.contextmanager
+def _no_host_sync(device: torch.device):
+    """On CUDA, make any host sync inside raise
+    (`torch.cuda.set_sync_debug_mode("error")`); the previous mode is
+    restored on the way out.  Nothing on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+class DecodeGraph:
+    """The fused path's decode step at one batch size, over that batch's
+    pooled cache.  The step reads static device buffers and writes them in
+    place: `tok` [B] (the input token, then the greedy argmax), `pos` (a
+    0-d int64, advanced by one inside the step) and `mask` [B,
+    max_seq_len] (the decode-time pad mask).  On CUDA it is captured once
+    as a `torch.cuda.CUDAGraph` and `run` replays it; on the CPU `run`
+    calls the same step eagerly.
+
+    `tally` is the kernel launches one replay makes, by counter name
+    (`kernels.launch_counts` over the capture, which records each launch
+    once); `replays` counts replays, so a replayed run's kernel executions
+    are the counters' change plus replays x tally.  `capture_s` is the
+    host time of the warm-up and the capture."""
+
+    #: Eager steps on the capture stream before the capture: they load the
+    #: kernel libraries and create the stream's cuBLAS handle and
+    #: workspace, which a capture must not allocate.
+    WARMUP_STEPS = 2
+
+    def __init__(self, engine: "InferenceEngine", batch: int, cache):
+        dev = engine.device
+        self.bundle, self.params, self.cache = \
+            engine.bundle, engine.params, cache
+        self.tok = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.mask = torch.ones((batch, engine.max_seq_len), dtype=torch.bool,
+                               device=dev)
+        self.graph = None
+        self.tally: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s = 0.0
+        if dev.type == "cuda":
+            self._capture()
+
+    def _step(self) -> None:
+        logits, _ = self.bundle.decode_step(self.params, self.tok, self.cache,
+                                            self.pos, attn_mask=self.mask)
+        self.tok.copy_(torch.argmax(logits, dim=-1))
+        self.pos.add_(1)
+
+    def _capture(self) -> None:
+        """Warm up on a side stream, then capture one step on it, each
+        under `_no_host_sync`: a step that syncs raises here.  The warm-up
+        writes the cache (K/V at slots 0 and 1, the recurrent state); the
+        caller zeroes the state before the next prefill, and K/V slots are
+        rewritten or masked as for any pooled cache."""
+        dev = self.tok.device
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream), _no_host_sync(dev):
+            for _ in range(self.WARMUP_STEPS):
+                self._step()
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            with _no_host_sync(dev):
+                self._step()
+        after = launch_counts()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        self.tally = {k: after[k] - before[k] for k in after}
+        self.graph = graph
+        self.capture_s = time.monotonic() - t0
+
+    def run(self) -> None:
+        """One decode step: a replay on CUDA, the eager step on the CPU."""
+        if self.graph is None:
+            self._step()
+        else:
+            self.graph.replay()
+            self.replays += 1
+
+
 class InferenceEngine:
     """Greedy batched generation: one prefill, then `max_new_tokens`
     decode steps.
 
     decode_impl: "fused" (device-side token buffer, one host copy per
-    generate) or "loop" (a host copy per token).  prompt_bucket: padded
+    generate; on CUDA a graph replay a step) or "loop" (a host copy per
+    token, eager steps).  A fused step that cannot be captured raises:
+    nothing falls back to eager decode.  prompt_bucket: padded
     prompt lengths are rounded up to this multiple.  device: where the
     engine's inputs and caches live (CUDA unless told otherwise); `params`
     must already be there.
@@ -101,6 +202,8 @@ class InferenceEngine:
         self.decode_impl = decode_impl
         self.prompt_bucket = prompt_bucket
         self._cache_pool: Dict[int, object] = {}
+        # batch -> the fused path's decode step over that batch's cache
+        self.decode_graphs: Dict[int, DecodeGraph] = {}
         # (entry point, batch, bucketed prompt length) -> calls
         self.calls: collections.Counter = collections.Counter()
 
@@ -133,16 +236,32 @@ class InferenceEngine:
             self.bundle.zero_state(cache)
         return cache
 
+    def _graph_for(self, batch: int, cache) -> DecodeGraph:
+        """The fused decode step at `batch`, captured on first use (before
+        the prefill: the capture's warm-up writes the state, which is
+        zeroed again here).  A failed capture raises and stores nothing."""
+        graph = self.decode_graphs.get(batch)
+        if graph is None:
+            graph = DecodeGraph(self, batch, cache)
+            self.bundle.zero_state(cache)
+            self.decode_graphs[batch] = graph
+        return graph
+
     @property
     def compile_counts(self) -> Dict[str, int]:
-        """The torch meaning of the reference's jit-cache sizes: per entry
-        point, the number of distinct (batch, bucketed prompt length)
-        shapes it has run — what a per-shape CUDA-graph or compile cache
-        would hold — plus the cache pool size.  A sweep that repeats
-        shapes keeps these flat; `calls` has the call count per shape."""
-        counts = {"prefill": 0, "decode_loop": 0, "decode_fused": 0}
+        """The torch meaning of the reference's jit-cache sizes, plus the
+        cache pool size.  "decode_fused": the decode steps the fused path
+        holds, one a batch size — CUDA graphs captured on CUDA, batch
+        sizes run on the CPU — which, for a fixed `max_new_tokens`,
+        equals the reference's count (its `start_pos` is traced).
+        "prefill" and "decode_loop": the distinct (batch, bucketed prompt
+        length) shapes each has run.  A sweep that repeats shapes keeps
+        these flat; `calls` has the call count per shape."""
+        counts = {"prefill": 0, "decode_loop": 0}
         for (entry, _, _) in self.calls:
-            counts[entry] += 1
+            if entry in counts:
+                counts[entry] += 1
+        counts["decode_fused"] = len(self.decode_graphs)
         counts["cache_pool"] = len(self._cache_pool)
         return counts
 
@@ -181,6 +300,8 @@ class InferenceEngine:
         toks, mask, prompt_len = self._pad_batch(prompts)
         b = toks.shape[0]
         cache = self._cache_for(b)
+        graph = self._graph_for(b, cache) \
+            if self.decode_impl == "fused" else None
         dev = self.device
 
         self._sync()
@@ -202,15 +323,16 @@ class InferenceEngine:
         key = ("decode_fused" if self.decode_impl == "fused"
                else "decode_loop", b, prompt_len)
         t0 = time.monotonic()
-        if self.decode_impl == "fused":
+        if graph is not None:
+            graph.mask.copy_(dec_mask)
+            graph.tok.copy_(tok)
+            graph.pos.fill_(prompt_len)      # the step advances it
             out_d = torch.empty((b, max_new_tokens), dtype=torch.int32,
                                 device=dev)
-            for i in range(max_new_tokens):
-                out_d[:, i] = tok
-                logits, cache = self.bundle.decode_step(
-                    self.params, tok, cache, prompt_len + i,
-                    attn_mask=dec_mask)
-                tok = torch.argmax(logits, dim=-1)
+            with _no_host_sync(dev):
+                for i in range(max_new_tokens):
+                    out_d[:, i] = graph.tok
+                    graph.run()
             out = out_d.cpu().numpy()        # the one device->host copy
         else:
             out = np.zeros((b, max_new_tokens), np.int32)

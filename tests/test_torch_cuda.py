@@ -13,11 +13,20 @@ fp32 (its kernel computes in fp32 from bf16 inputs too, so bf16 is held to
 at another rounding order than the plain versions', 1e-4.  Prefill
 attention over long prompts, whose late rows are small (RMS ~0.03), is
 held row by row to tol times each row's max |ref| (`row_scaled_error`).
+
+The engine's fused decode replays a CUDA graph a step; on each family's
+smoke config (bf16, attention through the kernels at head_dim 32, which
+they take) its tokens equal the eager loop's bit for bit.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+import repro_torch.configs as torch_configs
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fl_ops
 from repro_torch.kernels.flash_attention.ref import row_scaled_error
@@ -26,6 +35,8 @@ from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rwkv6 import ops as wk_ops
 from repro_torch.models import moe
+from repro_torch.models.registry import bundle_for
+from repro_torch.serving.engine import InferenceEngine
 
 CUDA_MISSING_REASON = "needs a CUDA device; the kernel has no CPU mode"
 
@@ -563,3 +574,110 @@ def test_rglru_rejects_what_the_kernel_cannot_take(rnd):
     with pytest.raises(ValueError, match="strides"):
         rg_ops.rglru(log_a, bb.transpose(1, 2).contiguous().transpose(1, 2),
                      h0)
+
+
+# ---------------------------------------------------------------------------
+# The fused decode as a CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "rwkv6-3b", "recurrentgemma-9b")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip(CUDA_MISSING_REASON)
+
+
+def _smoke_bundle(arch):
+    """The arch's smoke config in bf16 with its attention on the kernels
+    (head_dim 32: the smoke's 16 is below what they take)."""
+    cfg = torch_configs.get_smoke(arch)
+    if hasattr(cfg, "attn_impl"):
+        cfg = dataclasses.replace(cfg, attn_impl="flash", head_dim=32)
+    bundle = bundle_for(cfg)
+    return bundle, bundle.init_params(0, "cuda")
+
+
+def _card_engine(bundle, params, decode_impl="fused"):
+    return InferenceEngine(bundle, params, max_batch=4, max_seq_len=48,
+                           prompt_bucket=8, decode_impl=decode_impl,
+                           device="cuda")
+
+
+def _card_prompts(lengths, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 256, n).astype(np.int32) for n in lengths]
+
+
+def _delta(before):
+    after = launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_decode_equals_eager_loop(card, arch):
+    """Two generates at batch 3 in prompt buckets 8 and 16 replay one
+    graph, each equal to the eager loop's tokens bit for bit.  The kernel
+    counters move by the prefill over a replayed generate (and, on the
+    first, by the capture's warm-up steps and its one recorded step):
+    with replays x tally they equal the loop's, whose steps are eager."""
+    bundle, params = _smoke_bundle(arch)
+    fused = _card_engine(bundle, params)
+    loop = _card_engine(bundle, params, "loop")
+    steps = 6
+    for i, lengths in enumerate(([5, 8, 2], [13, 9, 16])):
+        prompts = _card_prompts(lengths, seed=i)
+        before = launch_counts()
+        out_f, _ = fused.generate(prompts, steps)
+        torch.cuda.synchronize()
+        d_fused = _delta(before)
+        before = launch_counts()
+        out_l, _ = loop.generate(prompts, steps)
+        torch.cuda.synchronize()
+        d_loop = _delta(before)
+        np.testing.assert_array_equal(out_f, out_l)
+        (graph,) = fused.decode_graphs.values()
+        assert graph.graph is not None and graph.replays == steps * (i + 1)
+        assert any(graph.tally.values())
+        captured = graph.WARMUP_STEPS + 1 if i == 0 else 0
+        assert {k: d_fused[k] + (steps - captured) * graph.tally[k]
+                for k in d_fused} == d_loop
+    assert fused.compile_counts["decode_fused"] == 1
+    assert loop.compile_counts["decode_fused"] == 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+class _HostSyncStep:
+    """A bundle whose decode step reads the position on the host: a sync
+    (`.item()`) when the position is a device tensor."""
+
+    def __init__(self, bundle):
+        self._bundle = bundle
+
+    def __getattr__(self, name):
+        return getattr(self._bundle, name)
+
+    def decode_step(self, params, token, cache, pos, **kw):
+        int(pos)
+        return self._bundle.decode_step(params, token, cache, pos, **kw)
+
+
+@pytest.mark.requires_cuda
+def test_a_failed_capture_raises_and_nothing_decodes_eagerly(card):
+    """The capture runs under `set_sync_debug_mode("error")`: a step that
+    syncs raises from `generate`, stores no graph and raises again on the
+    next call; the loop (a caller's choice) still runs the same step."""
+    bundle, params = _smoke_bundle("llama3.2-1b")
+    syncing = _HostSyncStep(bundle)
+    fused = _card_engine(syncing, params)
+    prompts = _card_prompts([4, 6], seed=3)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            fused.generate(prompts, 3)
+        assert fused.decode_graphs == {}
+        assert torch.cuda.get_sync_debug_mode() == 0
+    out, _ = _card_engine(syncing, params, "loop").generate(prompts, 3)
+    ref, _ = _card_engine(bundle, params, "loop").generate(prompts, 3)
+    np.testing.assert_array_equal(out, ref)
