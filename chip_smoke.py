@@ -34,14 +34,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      operations are counted at the TF32 peak three times over (twice
      where v holds bf16 values), the rest at fp32's; the grouped GEMM's
      fp32 tile (C > 8) is 3xTF32 too, its products counted at the TF32
-     peak three times over.  The RG-LRU scan (fp32 only: the recurrence's
-     inputs and state are fp32 in the model) runs at recurrentgemma-9b's prefill
-     (B 28, S 16, W 4096) and decode (S 1) shapes from a nonzero state and
-     is held, on h and on the final state, to SUM_TOLERANCE's 1e-4 as
-     |err| <= 1e-4 * (1 + |ref|): the state carries every earlier step,
-     summed in another order by the plain version.  Prefill attention also
-     runs at recurrentgemma-9b's heads (16/1 x 256, window 2048), and
-     RMSNorm at its d_model 4096.  Prefill attention (bf16: the
+     peak three times over.  The RG-LRU kernel runs both front ends at
+     recurrentgemma-9b's prefill (B 28, S 16, W 4096) and decode (S 1)
+     shapes from a nonzero state: the plain scan from fp32 log_a and b,
+     and the gated front end (the one the model runs) from bf16
+     pre-activations za, zi and y, held to `rglru_gates_ref` then the
+     step or the associative scan.  Both are held, on h and on the final
+     state, to SUM_TOLERANCE's fp32 1e-4 as |err| <= 1e-4 * (1 + |ref|):
+     the state carries every earlier step, summed in another order by
+     the plain version.  Their decode rows are also timed as a captured
+     CUDA graph of 10 back-to-back launches (`graph_ms`: the kernel's time
+     as inside the engine's decode graph, without the host's launches,
+     which the event time of phase 2's other rows includes).  Prefill
+     attention also runs at recurrentgemma-9b's heads (16/1 x 256,
+     window 2048), and RMSNorm at its d_model 4096.  Prefill attention (bf16: the
      tensor-core kernel; fp32: the CUDA-core one) is held row by row, each
      query row to tol * its own max|ref|, and in bf16 also runs at 4 x 4000
      tokens: llama's heads (causal; phase 6's shapes, SDPA with
@@ -106,7 +112,8 @@ before it the kernels' JSON record (`launches` summed over the four
 paths' counted runs; times at the llama shapes for the attention and norm
 kernels, at olmoe's decode gate/up product for the grouped GEMM, at
 rwkv6-3b's decode step for WKV6 and at recurrentgemma-9b's decode step
-for the RG-LRU scan), and the last line is
+for the RG-LRU kernel's gated front end, the one the path runs), and the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -239,6 +246,37 @@ def time_ms(fn, reps: int = 15, inner: int = 10, prime: bool = True):
     return statistics.median(dev), statistics.median(call)
 
 
+def graph_ms(fn, inner: int = 10, reps: int = 15) -> float:
+    """Per-call device time of `fn` captured `inner` times back to back in
+    one CUDA graph: the median over `reps` replays timed with CUDA events,
+    each replay behind a sleep kernel so the host's launch of the graph is
+    off the clock.  What is left is the kernels' own time and the graph's
+    gaps between them, as inside the engine's decode graph."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def wkv6_flops(b, s, h, n, chunk, exact_v):
     """Operations of the WKV6 kernel on these shapes, keyed by the peak
     (PEAK_FLOPS) they run at.  The step form (chunk 1): per token and
@@ -285,11 +323,14 @@ def kernel_checks(torch, ops):
     def check(name, dtype_name, shape, kernel, plain, library, nbytes,
               flops, is_main, long_sums=False,
               library_note=None, to_max_ref=False, per_row=False,
-              compare=None, plain_reps=15, plain_prime=True):
+              compare=None, plain_reps=15, plain_prime=True, graph=False,
+              record_as=None):
         """Hold kernel() to plain() and time kernel, plain and library.
         `compare`, a (kernel, plain) pair of smaller calls, replaces the
         timed pair in the comparison where the plain version cannot run at
-        the timed shape."""
+        the timed shape.  `graph`: also time kernel() inside a CUDA graph
+        (`graph_ms`).  A main row is recorded under `record_as` (default
+        `name`), the library it belongs to."""
         kernel_c, plain_c = compare or (kernel, plain)
         k_out, p_out = kernel_c(), plain_c()
         out, ref = flat(k_out), flat(p_out)
@@ -313,6 +354,7 @@ def kernel_checks(torch, ops):
         finite = bool(torch.isfinite(out).all().item())
         del k_out, p_out, out, ref, diff
         ms, call_ms = time_ms(kernel)
+        g_ms = graph_ms(kernel) if graph else None
         plain_ms = time_ms(plain, reps=plain_reps,
                            inner=min(10, plain_reps), prime=plain_prime)[0]
         lib_ms = time_ms(library)[0] if library is not None else None
@@ -327,7 +369,8 @@ def kernel_checks(torch, ops):
         tol = (SUM_TOLERANCE if long_sums else TOLERANCE)[dtype_name]
         say(f"kernel {name} dtype={dtype_name} shape={shape} "
             f"kernel_ms={ms:.5f} call_ms={call_ms:.5f} "
-            f"plain_ms={plain_ms:.5f} "
+            + (f"graph_ms={g_ms:.6f} " if graph else "")
+            + f"plain_ms={plain_ms:.5f} "
             f"library_ms={'none' if lib_ms is None else f'{lib_ms:.5f}'} "
             f"bound_ms={bound_ms:.6f} bound_by={bound_by} "
             f"bytes={int(nbytes)} flops="
@@ -342,11 +385,14 @@ def kernel_checks(torch, ops):
             failures.append(f"{name} {dtype_name} {shape}: err={scaled} "
                             f"finite={finite}")
         if is_main:
-            main[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": lib_ms}
+            key = record_as or name
+            main[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms}
+            if graph:
+                main[key]["graph_ms"] = g_ms
             if library_note is not None:
-                main[name]["library_note"] = library_note
+                main[key]["library_note"] = library_note
 
     def decode_case(dtype_name, b, s_len, lo, hi, h, kvh, d, is_main):
         dt = getattr(torch, dtype_name)
@@ -469,15 +515,21 @@ def kernel_checks(torch, ops):
                 f"version's call time; its ~1,600 launches a call overrun "
                 f"the launch queue, so no primed window holds them)")
 
-    def rglru_case(s_len, is_main):
+    def rglru_lambda(w):
+        """lambda from the reference's init: softplus^-1 of the decay
+        strengths -log(u) / 8, u ~ U(0.9, 0.999)."""
+        u = torch.empty((w,), device=dev).uniform_(0.9, 0.999, generator=gen)
+        return torch.log(torch.expm1(-torch.log(u) / 8.0))
+
+    def rglru_case(s_len):
+        """The plain front end from fp32 log_a and b."""
         rg = ops["rglru"]
         b, w = MAX_BATCH, 4096
         shape = (b, s_len, w)
         f32 = torch.float32
         # The model's decay range: log_a = -8 softplus(lambda) r with
         # lambda from the reference's init and r a sigmoid gate.
-        u = torch.empty((w,), device=dev).uniform_(0.9, 0.999, generator=gen)
-        lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+        lam = rglru_lambda(w)
         sets = [(-8.0 * F.softplus(lam) * torch.sigmoid(rnd(shape, f32)),
                  rnd(shape, f32), rnd((b, w), f32)) for _ in range(4)]
         # Calls take turns over 4 input sets (59 MB at the prefill shape,
@@ -494,8 +546,44 @@ def kernel_checks(torch, ops):
               lambda: rg.rglru(*next(kernel_sets)),
               lambda: plain(*next(plain_sets)), None,
               3 * n * 4 + 2 * b * w * 4,
-              3 * n, is_main, long_sums=True,
-              library_note=RGLRU_LIBRARY_NOTE)
+              3 * n, False, long_sums=True,
+              library_note=RGLRU_LIBRARY_NOTE, graph=s_len == 1)
+
+    def rglru_gated_case(s_len):
+        """The gated front end, as recurrentgemma-9b's blocks run it: bf16
+        za = y @ w_a, zi = y @ w_i and y, fp32 b_a, b_i and lambda, held to
+        `rglru_gates_ref` then the step or the associative scan."""
+        rg = ops["rglru"]
+        b, w = MAX_BATCH, 4096
+        shape = (b, s_len, w)
+        f32, bf16 = torch.float32, torch.bfloat16
+        vectors = (0.5 * rnd((w,), f32), 0.5 * rnd((w,), f32),
+                   rglru_lambda(w))
+        # 4 input sets in turn (44 MB at the prefill shape), the kernel's
+        # states copies, as in rglru_case.
+        sets = [(rnd(shape, bf16), rnd(shape, bf16), rnd(shape, bf16),
+                 *vectors, rnd((b, w), f32)) for _ in range(4)]
+        kernel_sets = itertools.cycle([(*st[:-1], st[-1].clone())
+                                       for st in sets])
+        plain_sets = itertools.cycle(sets)
+        step = rg.rglru_step_ref if s_len == 1 else rg.rglru_assoc_ref
+
+        def plain():
+            *inputs, h0 = next(plain_sets)
+            return step(*rg.rglru_gates_ref(*inputs), h0)
+        n = b * s_len * w
+        # Bytes: za, zi, y (bf16) and the three [W] vectors read, h
+        # written (fp32), the state read and written.  Operations: the
+        # gates, a, b and the step, 18 an element, at fp32's peak.
+        plan = rg.launch_plan(b, s_len, w, sets[0][0].stride(), True)
+        check("rglru_gated", "float32",
+              shape + (f"za/zi/y bf16, {plan.ctas} CTAs of "
+                       f"{rg.CTA_THREADS}",),
+              lambda: rg.rglru_gated(*next(kernel_sets)), plain, None,
+              3 * n * 2 + 3 * w * 4 + n * 4 + 2 * b * w * 4,
+              18 * n, s_len == 1, long_sums=True,
+              library_note=RGLRU_LIBRARY_NOTE, graph=s_len == 1,
+              record_as="rglru")
 
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
@@ -600,10 +688,13 @@ def kernel_checks(torch, ops):
             wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1,
                       b=b)
 
-    # The RG-LRU scan at recurrentgemma-9b's width (4096) and batch 28: the
-    # prompt's scan (16 tokens) and the decode step, in fp32.
+    # The RG-LRU kernel at recurrentgemma-9b's width (4096) and batch 28:
+    # the prompt's scan (16 tokens) and the decode step, through the plain
+    # front end (fp32) and the gated one (bf16 pre-activations), whose
+    # decode row is the kernel's record: the main path runs it.
     for s_len in (PROMPT_LEN, 1):
-        rglru_case(s_len, s_len == 1)
+        rglru_case(s_len)
+        rglru_gated_case(s_len)
     if failures:
         fail("kernel != plain version: " + "; ".join(failures))
     return main

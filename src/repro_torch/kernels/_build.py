@@ -47,7 +47,8 @@ _ATTN = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 #: C signature of each entry point, by symbol (all return a cudaError_t).
 #: A library's default entry point is `<name>_launch`; flash_attention also
 #: has `flash_attention_tc_launch` (the bf16 tensor-core route), moe_gemm
-#: `moe_gemm_decode_launch` (bf16 at C <= 8, with its plan).
+#: `moe_gemm_decode_launch` (bf16 at C <= 8, with its plan), rglru
+#: `rglru_gated_launch` (the gate arithmetic folded in).
 SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
@@ -56,7 +57,9 @@ SIGNATURES = {
     "flash_attention_tc_launch": _ATTN,
     "moe_gemm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "moe_gemm_decode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+    "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    "rglru_gated_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _L, _L, _I, _P],
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _F, _P],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
                     _L, _L, _I, _P],

@@ -1,5 +1,5 @@
-"""Plain PyTorch RG-LRU scan: the CPU path of `ops.rglru` and the oracle its
-CUDA kernel is held to on the card.
+"""Plain PyTorch RG-LRU: the CPU path of `ops.rglru` and `ops.rglru_gated`
+and the oracle their CUDA kernel is held to on the card.
 
 The recurrence is h_t = exp(log_a_t) * h_{t-1} + b_t per channel, from an
 initial state h0:
@@ -15,6 +15,9 @@ initial state h0:
 
 All three take log_a and b fp32 [B, S, W] and h0 fp32 [B, W], and return
 (h fp32 [B, S, W], h_last fp32 [B, W]), leaving h0 as it was.
+
+`rglru_gates_ref` makes that log_a and b from the gate pre-activations,
+as the reference model's `_rglru_gates` (`repro.models.rglru`) does.
 """
 
 from __future__ import annotations
@@ -22,8 +25,27 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+#: The constant c of log a = -c softplus(lambda) r (Griffin's 8).
+LRU_C = 8.0
+
+
+def rglru_gates_ref(za: Tensor, zi: Tensor, y: Tensor, b_a: Tensor,
+                    b_i: Tensor, lru_lambda: Tensor) -> Tuple[Tensor, Tensor]:
+    """log_a and the gated input b, both fp32 [B, S, W], from the gate
+    pre-activations za = y @ w_a and zi = y @ w_i and the block's input y
+    ([B, S, W], any float type) and fp32 [W] b_a, b_i and lru_lambda:
+    r = sigmoid(za + b_a), i = sigmoid(zi + b_i),
+    log_a = -c softplus(lambda) r, b = sqrt(max(1 - a^2, 1e-9)) (i y)."""
+    r = torch.sigmoid(za.float() + b_a)
+    i = torch.sigmoid(zi.float() + b_i)
+    log_a = -LRU_C * F.softplus(lru_lambda) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9)) * (i * y.float())
+    return log_a, gated
 
 
 def rglru_scan_ref(log_a: Tensor, b: Tensor, h0: Tensor = None

@@ -15,9 +15,11 @@ RG-LRU (per channel):
     log a_t = -8 softplus(lambda) r_t
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t y_t)
 Every recurrence (the prompt's scan and every decode step) goes through
-`kernels/rglru/ops.rglru`: the hand-written CUDA kernel on the card, its
-plain version on the CPU.  The reference runs `jax.lax.associative_scan`
-and a one-token step there, never its Pallas kernel.
+`kernels/rglru/ops.rglru_gated` with the two gate products W_a y and W_i y
+(cuBLAS, as the reference's einsums): the gate arithmetic and the
+recurrence in one hand-written CUDA kernel on the card, their plain
+versions on the CPU.  The reference runs `jax.lax.associative_scan` and a
+one-token step there, never its Pallas kernel.
 
 Public API (used by serving/ and the tests):
     init_params(cfg, seed, device)          -> params
@@ -48,10 +50,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.rglru.ops import rglru
+from repro_torch.kernels.rglru.ops import rglru_gated, rglru_gates_ref
+from repro_torch.kernels.rglru.ref import LRU_C
 from repro_torch.models import common, flash
 from repro_torch.models.common import AttnSpec
 
@@ -59,7 +61,6 @@ Params = Dict[str, Any]
 Tensor = torch.Tensor
 
 _CONV_K = 4
-_LRU_C = 8.0
 
 #: The recurrent part of the cache, which prefill reads whole: a reused
 #: cache zeroes these before a new prompt (the ring KV part needs no
@@ -152,7 +153,7 @@ def _rec_block_init(cfg: RGLRUConfig, gen: torch.Generator, dev) -> Params:
                    ).to(dt),
         "conv_b": torch.zeros((w,), dtype=dt, device=dev),
         # softplus^-1 of the target decay strengths.
-        "lru_lambda": torch.log(torch.expm1(-torch.log(u) / _LRU_C)),
+        "lru_lambda": torch.log(torch.expm1(-torch.log(u) / LRU_C)),
         "w_a": common.dense_init(gen, w, w, dt, dev, scale=0.01),
         "b_a": torch.zeros((w,), dtype=torch.float32, device=dev),
         "w_i": common.dense_init(gen, w, w, dt, dev, scale=0.01),
@@ -238,24 +239,25 @@ def cache_from_jax(cfg: RGLRUConfig, tree: Params, device=None) -> Params:
 # RG-LRU core
 # ---------------------------------------------------------------------------
 
+def _gate_inputs(bp: Params, y: Tensor):
+    """The gate products (in the weight dtype), y and the fp32 [W] gate
+    vectors, in `rglru_gated`'s argument order."""
+    return (y @ bp["w_a"], y @ bp["w_i"], y, bp["b_a"], bp["b_i"],
+            bp["lru_lambda"])
+
+
 def _rglru_gates(bp: Params, y: Tensor) -> Tuple[Tensor, Tensor]:
     """log_a [B,S,W] fp32, gated input [B,S,W] fp32.  The products run in
     the weight dtype, the gates in fp32."""
-    r = torch.sigmoid((y @ bp["w_a"]).float() + bp["b_a"])
-    i = torch.sigmoid((y @ bp["w_i"]).float() + bp["b_i"])
-    log_a = -_LRU_C * F.softplus(bp["lru_lambda"]) * r
-    a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9)) * (i * y.float())
-    return log_a, gated
+    return rglru_gates_ref(*_gate_inputs(bp, y))
 
 
 def rglru_scan(bp: Params, y: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
     """h_t = a_t h_{t-1} + b_t over y [B,S,W] from h0 [B,W] fp32, which is
-    overwritten with h_last in place.  Returns (h [B,S,W] fp32, h0).  The
-    one-token step (the reference's `rglru_step`) is the same call at
-    S == 1."""
-    log_a, b = _rglru_gates(bp, y)
-    return rglru(log_a, b, h0)
+    overwritten with h_last in place, the gates made inside the same call
+    (`rglru_gated`).  Returns (h [B,S,W] fp32, h0).  The one-token step
+    (the reference's `rglru_step`) is the same call at S == 1."""
+    return rglru_gated(*_gate_inputs(bp, y), h0)
 
 
 # ---------------------------------------------------------------------------

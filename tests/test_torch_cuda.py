@@ -10,7 +10,9 @@ grouped GEMM, a sum of 1024-2048 products an output, 1e-4 in fp32; WKV6,
 whose outputs are sums over C·N terms and over the carried state, 1e-4 in
 fp32 (its kernel computes in fp32 from bf16 inputs too, so bf16 is held to
 2e-2); the RG-LRU scan (fp32 only), whose state carries every earlier step
-at another rounding order than the plain versions', 1e-4.  Prefill
+at another rounding order than the plain versions', 1e-4, and its gated
+front end (fp32 or bf16 pre-activations, fp32 arithmetic) 1e-4 of
+1 + |ref|.  Prefill
 attention over long prompts, whose late rows are small (RMS ~0.03), is
 held row by row to tol times each row's max |ref| (`row_scaled_error`).
 
@@ -563,6 +565,73 @@ def test_rglru_kernel_matches_plain(rnd, s):
 
 
 @pytest.mark.requires_cuda
+def test_rglru_kernel_takes_a_ragged_width(rnd):
+    """W 203 (not a multiple of the 4 channels a thread owns) as views of
+    rows of 235: the kernel's scalar accesses and each row's tail, at the
+    prompt's scan and the decode step."""
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for s in (37, 1):
+        log_a, bb, h0 = _rglru_inputs(rnd, 3, s, 203, width=235)
+        assert not rg_ops.launch_plan(3, s, 203, log_a.stride(), True).vec
+        seq_h, seq_last = rg_ops.rglru_scan_ref(log_a, bb, h0)
+        state = h0.clone()
+        h, _ = rg_ops.rglru(log_a, bb, state)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h, seq_h, **tol)
+        torch.testing.assert_close(state, seq_last, **tol)
+
+
+def _gated_inputs(rnd, b, s, w, dt, width=None):
+    """za, zi and y of type `dt` (views of [B, S, width] tensors when
+    `width` is given), fp32 b_a, b_i and lambda (the model's init range,
+    every 97th channel past softplus's threshold of 20) and a nonzero
+    state."""
+    f32 = torch.float32
+    shape = (b, s, width or w)
+    za, zi, y = (rnd(shape, dt)[..., :w] for _ in range(3))
+    u = 0.9 + 0.099 * torch.sigmoid(rnd((w,), f32))
+    lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+    lam[::97] = 25.0
+    return (za, zi, y, 0.5 * rnd((w,), f32), 0.5 * rnd((w,), f32), lam,
+            rnd((b, w), f32))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,w,width", [(28, 1, 4096, None),
+                                         (28, 16, 4096, None),
+                                         (3, 37, 203, 235)])
+def test_rglru_gated_kernel_matches_plain(rnd, b, s, w, width, dtype):
+    """The gated front end at recurrentgemma-9b's decode (S 1) and prefill
+    (S 16) shapes, 16-byte accesses, and at a ragged W of strided views
+    (scalar accesses and the tail), from a nonzero state: against
+    `rglru_gates_ref` then the step or the associative scan, as
+    |err| <= 1e-4 (1 + |ref|); the state written in place, one launch a
+    call, the same bits twice."""
+    za, zi, y, b_a, b_i, lam, h0 = _gated_inputs(rnd, b, s, w,
+                                                 getattr(torch, dtype), width)
+    assert rg_ops.launch_plan(b, s, w, za.stride(), True).vec == \
+        (width is None)
+    log_a, bb = rg_ops.rglru_gates_ref(za, zi, y, b_a, b_i, lam)
+    plain = rg_ops.rglru_step_ref if s == 1 else rg_ops.rglru_assoc_ref
+    ref_h, ref_last = plain(log_a, bb, h0)
+    runs = []
+    for _ in range(2):
+        state = h0.clone()
+        before = rg_ops.launches
+        h, out = rg_ops.rglru_gated(za, zi, y, b_a, b_i, lam, state)
+        torch.cuda.synchronize()
+        assert out is state and rg_ops.launches == before + 1
+        assert h.dtype == torch.float32 and h.shape == (b, s, w)
+        runs.append((h, state))
+    for got, ref in ((h, ref_h), (state, ref_last)):
+        assert bool(torch.isfinite(got).all())
+        assert ((got - ref).abs() / (1 + ref.abs())).max().item() <= 1e-4
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.requires_cuda
 def test_rglru_rejects_what_the_kernel_cannot_take(rnd):
     log_a, bb, h0 = _rglru_inputs(rnd, 2, 8, 64)
     with pytest.raises(TypeError):
@@ -574,6 +643,32 @@ def test_rglru_rejects_what_the_kernel_cannot_take(rnd):
     with pytest.raises(ValueError, match="strides"):
         rg_ops.rglru(log_a, bb.transpose(1, 2).contiguous().transpose(1, 2),
                      h0)
+    za, zi, y, b_a, b_i, lam, h0 = _gated_inputs(rnd, 2, 8, 64,
+                                                 torch.bfloat16)
+    vectors = (b_a, b_i, lam)
+    # Types: fp16 inputs, mixed input types, a bf16 gate vector.
+    with pytest.raises(TypeError):
+        rg_ops.rglru_gated(za.half(), zi.half(), y.half(), *vectors, h0)
+    with pytest.raises(TypeError):
+        rg_ops.rglru_gated(za, zi, y.float(), *vectors, h0)
+    with pytest.raises(TypeError):
+        rg_ops.rglru_gated(za, zi, y, b_a.bfloat16(), b_i, lam, h0)
+    # Devices.
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rg_ops.rglru_gated(za, zi, y, *vectors, h0.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rg_ops.rglru_gated(za, zi, y, b_a, b_i, lam.cpu(), h0)
+    # Shapes and strides.
+    with pytest.raises(ValueError, match="shape"):
+        rg_ops.rglru_gated(za, zi[:, :4], y, *vectors, h0)
+    with pytest.raises(ValueError, match="lru_lambda"):
+        rg_ops.rglru_gated(za, zi, y, b_a, b_i, lam[:32], h0)
+    with pytest.raises(ValueError, match="state"):
+        rg_ops.rglru_gated(za, zi, y, *vectors,
+                           rnd((2, 65), torch.float32)[:, :64])
+    with pytest.raises(ValueError, match="strides"):
+        rg_ops.rglru_gated(za, zi.transpose(1, 2).contiguous()
+                           .transpose(1, 2), y, *vectors, h0)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ is decided here in Python and tested on the CPU."""
 import pytest
 
 from repro_torch.kernels.moe_gemm import ops as mg_ops
+from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rwkv6 import ops as wk_ops
 
@@ -157,3 +158,33 @@ def test_moe_gemm_decode_plan_takes_the_cards_sm_count():
 def test_moe_gemm_decode_plan_refuses(shape):
     with pytest.raises(ValueError, match="moe_gemm decode"):
         mg_ops.decode_plan(*shape)
+
+
+# --- RG-LRU ------------------------------------------------------------------
+
+RGLRU_PLANS = [
+    # (B, S, W, (batch, step) strides, aligned) -> (vec, CTAs)
+    ((28, 1, 4096, (4096, 4096), True), (True, 112)),   # the decode step
+    ((28, 16, 4096, (16 * 4096, 4096), True), (True, 112)),  # the prompt
+    ((4, 1, 4096, (4096, 4096), True), (True, 16)),
+    ((3, 37, 200, (37 * 232, 232), True), (True, 3)),  # row views of 232
+    ((28, 1, 4096, (4096, 4097), True), (True, 112)),  # S 1: no step stride
+    ((3, 37, 203, (37 * 203, 203), True), (False, 3)),  # W 203: the tail
+    ((2, 8, 64, (8 * 65, 65), True), (False, 2)),      # rows of 65
+    ((2, 1, 4100, (4100, 4100), True), (True, 10)),    # 1025 threads a row
+    ((28, 1, 4096, (4096, 4096), False), (False, 112)),  # a base off line
+]
+
+
+@pytest.mark.parametrize("args,want", RGLRU_PLANS)
+def test_rglru_launch_plan(args, want):
+    plan = rg_ops.launch_plan(*args)
+    assert (plan.vec, plan.ctas) == want
+    b, _, w = args[:3]
+    assert plan.ctas % b == 0
+    assert plan.ctas // b * rg_ops.CTA_THREADS * rg_ops.LANES >= w
+
+
+def test_rglru_launch_plan_refuses_an_empty_shape():
+    with pytest.raises(ValueError, match="rglru"):
+        rg_ops.launch_plan(0, 1, 4096, (4096, 4096), True)

@@ -6,7 +6,10 @@ package's, on the CPU.
   interpret mode from a zero state, over the sweep of tests/test_kernels.py
   (rtol/atol 1e-4, as there); the model's `rglru_scan` (prompt and
   one-token step) against `repro.models.rglru`'s `rglru_scan` /
-  `rglru_step` from a nonzero state (fp32, 1e-5).
+  `rglru_step` from a nonzero state (fp32, 1e-5); `ops.rglru_gated` (its
+  plain version: `rglru_gates_ref`, then the step or the associative
+  scan) from the pre-activations of JAX's own gate products, in fp32 and
+  bf16, against the same (1e-5).
 - The causal conv with a nonzero tail; the GeGLU MLP (tanh GeLU, which the
   exact form would fail); the sqrt(d) embedding scale.
 - The ring KV cache: `cached_attention(ring=True)` over steps that wrap
@@ -129,6 +132,41 @@ def test_rglru_scan_and_step_honour_the_initial_state(s):
         fh, flast = form(log_a, gated, _t(h0))
         _close(fh, jh, EXACT_TOL)
         _close(flast, jlast, EXACT_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 16, 37])
+def test_rglru_gated_matches_jax_gates_and_scan(s, dtype):
+    """The gated entry's CPU path against the reference's `_rglru_gates`
+    followed by `rglru_step` (S 1) or `rglru_scan` from a nonzero state.
+    The pre-activations are JAX's own products of the shared inputs, so
+    the two sides start from the same za and zi; a few channels' lambda
+    lie past softplus's threshold of 20."""
+    rng = np.random.default_rng(100 + s)
+    b, w = 2, 40
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    lam = np.log(np.expm1(-np.log(rng.uniform(0.9, 0.999, w)) / 8.0))
+    lam[::13] = 25.0
+    bp = {"w_a": 0.2 * rng.standard_normal((w, w)),
+          "w_i": 0.2 * rng.standard_normal((w, w)),
+          "b_a": rng.standard_normal(w), "b_i": rng.standard_normal(w),
+          "lru_lambda": lam}
+    jbp = {k: jnp.asarray(v, jdt if k in ("w_a", "w_i") else jnp.float32)
+           for k, v in bp.items()}
+    y = jnp.asarray(rng.standard_normal((b, s, w)), jdt)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    jfn = jax_rglru.rglru_scan if s > 1 else jax_rglru.rglru_step
+    jh, jlast = jfn(jbp, y, jnp.asarray(h0))
+    za, zi = (jnp.einsum("bsw,wu->bsu", y, jbp[k]) for k in ("w_a", "w_i"))
+    port = [_t(np.asarray(a, np.float32)).to(tdt) for a in (za, zi, y)]
+    state = _t(h0)
+    before = rg_ops.launches
+    h, out = rg_ops.rglru_gated(*port, _t(bp["b_a"]), _t(bp["b_i"]),
+                                _t(lam), state)
+    assert out is state and rg_ops.launches == before
+    assert h.dtype == torch.float32 and h.shape == (b, s, w)
+    _close(h, jh, EXACT_TOL)
+    _close(state, jlast, EXACT_TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
