@@ -69,7 +69,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      noise) over a left-padded 40-token prefill into a 16-slot ring (the
      prefill rolls it) and 8 decode steps that wrap it: flash (kernels) vs
      naive on the card, and flash on the card vs on the CPU (plain
-     versions), within 1e-4;
+     versions), within 1e-4.  Then continuous batching on the four narrow
+     models: one staggered workload (3 slots, chunks of 4, prompt bucket
+     8, `step_time_s=1`, an EOS, admissions mid-decode, recurrentgemma's
+     short admitted prompts rolled into its ring) on the card and on the
+     CPU gives the same tokens, decode steps, prefill calls and records;
   4. the main paths: llama3.2-1b (4a) and olmoe-1b-7b (4b) at full width
      (16 layers, d_model 2048, bf16, attn_impl="flash", 16-token prompts)
      and rwkv6-3b (4c: 32 layers, d_model 2560, bf16, 64-token prompts in
@@ -86,8 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      read and written, and recurrentgemma's attention caches read).  The
      fused decode replays one CUDA graph a step: before the counted run
      the engine captures its graph at every batch arm (capture time
-     printed).  Energy is the Jetson Orin analytical board model applied
-     to measured wall time: modelled, not measured on this card;
+     printed).  Energy there is the Jetson Orin analytical board model
+     applied to measured wall time (modelled; phase 8 measures it);
   5. after each path, its kernel executions equal what the path implies
      (counters set to 0 just before the path and read just after, plus
      each graph's replays in the run times its per-kernel tally; every
@@ -107,9 +111,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      executions of that generate (its graph's replays included) must show
      the combine kernel once a layer a decode step.
 
+  7. after each path, continuous batching on its engine at MAX_BATCH
+     slots (the graph phase 4 captured at that batch, replayed a step):
+     (a) every request at t=0 with equal budgets gives `generate`'s tokens
+     at chunk 8 and 3; (b) E13's workload (Poisson arrivals, every 4th
+     request 8x longer) through `generate_continuous` and through static
+     groups of MAX_BATCH, `step_time_s=1`: makespan in step units, wall
+     seconds, goodput, occupancy, queue wait, the continuous decode step
+     beside the static graph step; (c) the kernel executions of (a) and
+     (b), equal to their prefills (static, seed and one-row admission
+     alike) times a prefill's launches plus their decode steps times a
+     step's; then the one-row admission prefill alone, timed and profiled
+     (`kernel_in_path window=admit`);
+  8. after each path, measured energy: Camel rounds through
+     `EngineEnvironment(sensor="nvml")` with the static scheduler and the
+     continuous one, each pull's power the meter's average over NVML,
+     failing unless the sensor is `nvml:0` on the board whose UUID is
+     CUDA device 0's and every pull's watts are finite in (0, power
+     limit]; then one window of >= 1 s of generates at MAX_BATCH,
+     metered beside the board's energy counter
+     (`nvmlDeviceGetTotalEnergyConsumption`).  Nothing falls back to a
+     simulated sensor.
+
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the four
-paths' counted runs; times at the llama shapes for the attention and norm
+paths' counted runs, phase 7's included; times at the llama shapes for the attention and norm
 kernels, at olmoe's decode gate/up product for the grouped GEMM, at
 rwkv6-3b's decode step for WKV6 and at recurrentgemma-9b's decode step
 for the RG-LRU kernel's gated front end, the one the path runs), and the
@@ -549,12 +575,12 @@ def kernel_checks(torch, ops):
               3 * n, False, long_sums=True,
               library_note=RGLRU_LIBRARY_NOTE, graph=s_len == 1)
 
-    def rglru_gated_case(s_len):
+    def rglru_gated_case(s_len, b=MAX_BATCH):
         """The gated front end, as recurrentgemma-9b's blocks run it: bf16
         za = y @ w_a, zi = y @ w_i and y, fp32 b_a, b_i and lambda, held to
         `rglru_gates_ref` then the step or the associative scan."""
         rg = ops["rglru"]
-        b, w = MAX_BATCH, 4096
+        w = 4096
         shape = (b, s_len, w)
         f32, bf16 = torch.float32, torch.bfloat16
         vectors = (0.5 * rnd((w,), f32), 0.5 * rnd((w,), f32),
@@ -581,7 +607,7 @@ def kernel_checks(torch, ops):
                        f"{rg.CTA_THREADS}",),
               lambda: rg.rglru_gated(*next(kernel_sets)), plain, None,
               3 * n * 2 + 3 * w * 4 + n * 4 + 2 * b * w * 4,
-              18 * n, s_len == 1, long_sums=True,
+              18 * n, s_len == 1 and b == MAX_BATCH, long_sums=True,
               library_note=RGLRU_LIBRARY_NOTE, graph=s_len == 1,
               record_as="rglru")
 
@@ -630,6 +656,11 @@ def kernel_checks(torch, ops):
         prefill_case(dtype_name, 16, 16, 128, False)
         prefill_case(dtype_name, 16, 1, 256, False, window=2048)
         if is_bf16:
+            # Continuous batching's admission: one left-padded 16-token
+            # row at a time (phase 7), at each path's heads.
+            prefill_case(dtype_name, 32, 8, 64, False, b=1)
+            prefill_case(dtype_name, 16, 16, 128, False, b=1)
+            prefill_case(dtype_name, 16, 1, 256, False, window=2048, b=1)
             # Phase 6's long prompts (llama heads, causal, 4 x 4000) and
             # recurrentgemma's heads at that length, where its 2048 window
             # skips whole key tiles.
@@ -682,9 +713,11 @@ def kernel_checks(torch, ops):
         # at batch 4 (2048 tokens: 64 chunks, where staging the next chunk
         # while one computes matters) and the decode step at batch 28.
         # The kernel computes in fp32 whatever the input type.
+        # A one-row admission prefill (phase 7) runs the chunked form at
+        # batch 1.
         for s_len, chunk, b in ((64, 32, MAX_BATCH),
                                 (WKV6_LONG_PROMPT, 32, LONG_BATCH),
-                                (1, 1, MAX_BATCH)):
+                                (64, 32, 1), (1, 1, MAX_BATCH)):
             wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1,
                       b=b)
 
@@ -695,6 +728,7 @@ def kernel_checks(torch, ops):
     for s_len in (PROMPT_LEN, 1):
         rglru_case(s_len)
         rglru_gated_case(s_len)
+    rglru_gated_case(PROMPT_LEN, b=1)        # a one-row admission prefill
     if failures:
         fail("kernel != plain version: " + "; ".join(failures))
     return main
@@ -735,21 +769,8 @@ def model_check(torch, rt):
     import dataclasses
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    narrow = {
-        "llama": rt.transformer.TransformerConfig(
-            name="llama-narrow", n_layers=2, d_model=512, n_heads=32,
-            n_kv_heads=8, head_dim=64, d_ff=1024, vocab_size=1024,
-            rope_theta=500000.0, dtype=torch.float32),
-        # olmoe's head geometry, qk-norm, untied head and MoE FFN; capacity
-        # factor 8 as tests/test_models_decode_equiv.py sets it.
-        "olmoe": rt.transformer.TransformerConfig(
-            name="olmoe-narrow", n_layers=2, d_model=256, n_heads=4,
-            n_kv_heads=4, head_dim=128, d_ff=512, vocab_size=1024,
-            qk_norm=True, tie_embeddings=False,
-            moe=rt.MoEConfig(n_experts=8, top_k=2, d_ff=512,
-                             capacity_factor=8.0),
-            dtype=torch.float32),
-    }
+    narrow = {k: v for k, v in narrow_configs(torch, rt).items()
+              if k in ("llama", "olmoe")}
     b, plen, steps = 4, 16, 4
     pads = torch.tensor([0, 3, 7, 15])
     rng = torch.Generator().manual_seed(1)
@@ -792,13 +813,8 @@ def rwkv6_check(torch, rt):
     """A narrow fp32 rwkv6 (40-token prefill: two chunks of 16 and an
     8-token tail, then 4 decode steps) on the card (the WKV6 kernel)
     against the same weights on the CPU (plain versions)."""
-    cfg = rt.rwkv6.RWKV6Config(
-        name="rwkv6-narrow", n_layers=2, d_model=256, head_dim=64, d_ff=512,
-        vocab_size=1024, lora_rank_decay=16, lora_rank_mix=8, chunk=16,
-        dtype=torch.float32)
-    params = rt.bundle_for(cfg).init_params(0, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    _add_noise(torch, params, gen, _RWKV6_NOISE)
+    cfg = narrow_configs(torch, rt)["rwkv6"]
+    params = narrow_params(torch, rt, "rwkv6", cfg)
     b, plen, steps = 4, 40, 4
     pads = torch.tensor([0, 3, 9, 30])
     rng = torch.Generator().manual_seed(1)
@@ -827,13 +843,8 @@ def rglru_model_check(torch, rt):
     it: flash (kernels) vs naive on the card, and flash on the card vs the
     same weights on the CPU (plain versions)."""
     import dataclasses
-    base = rt.rglru.RGLRUConfig(
-        name="recurrentgemma-narrow", n_layers=3, d_model=256, n_heads=16,
-        n_kv_heads=1, head_dim=256, d_ff=512, vocab_size=1024,
-        lru_width=256, sliding_window=16, dtype=torch.float32)
-    params = rt.bundle_for(base).init_params(0, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    _add_noise(torch, params, gen, _RGLRU_NOISE)
+    base = narrow_configs(torch, rt)["recurrentgemma"]
+    params = narrow_params(torch, rt, "recurrentgemma", base)
     b, plen, steps, max_len = 4, 40, 8, 64
     pads = torch.tensor([0, 3, 9, 30])
     rng = torch.Generator().manual_seed(1)
@@ -862,6 +873,116 @@ def rglru_model_check(torch, rt):
             f"finite={finite}")
         if not finite or not diff <= 1e-4:
             fail(f"recurrentgemma: {label}: logits differ by {diff}")
+
+
+def narrow_configs(torch, rt):
+    """Phase 3's narrow fp32 models, by label: llama3.2-1b's head geometry
+    and olmoe-1b-7b's (qk-norm, untied head, 8 experts top-2 at capacity
+    factor 8, as tests/test_models_decode_equiv.py sets it), a 2-layer
+    rwkv6 at head_dim 64, and a 3-block recurrentgemma with a 16-slot
+    attention window (a ring once the cache is longer)."""
+    return {
+        "llama": rt.transformer.TransformerConfig(
+            name="llama-narrow", n_layers=2, d_model=512, n_heads=32,
+            n_kv_heads=8, head_dim=64, d_ff=1024, vocab_size=1024,
+            rope_theta=500000.0, dtype=torch.float32),
+        "olmoe": rt.transformer.TransformerConfig(
+            name="olmoe-narrow", n_layers=2, d_model=256, n_heads=4,
+            n_kv_heads=4, head_dim=128, d_ff=512, vocab_size=1024,
+            qk_norm=True, tie_embeddings=False,
+            moe=rt.MoEConfig(n_experts=8, top_k=2, d_ff=512,
+                             capacity_factor=8.0),
+            dtype=torch.float32),
+        "rwkv6": rt.rwkv6.RWKV6Config(
+            name="rwkv6-narrow", n_layers=2, d_model=256, head_dim=64,
+            d_ff=512, vocab_size=1024, lora_rank_decay=16, lora_rank_mix=8,
+            chunk=16, dtype=torch.float32),
+        "recurrentgemma": rt.rglru.RGLRUConfig(
+            name="recurrentgemma-narrow", n_layers=3, d_model=256,
+            n_heads=16, n_kv_heads=1, head_dim=256, d_ff=512,
+            vocab_size=1024, lru_width=256, sliding_window=16,
+            dtype=torch.float32),
+    }
+
+
+def narrow_params(torch, rt, label, cfg):
+    """Seeded weights of a narrow model on the card; rwkv6's and
+    recurrentgemma's leaves that start at zero or a constant get noise."""
+    params = rt.bundle_for(cfg).init_params(0, "cuda")
+    noise = {"rwkv6": _RWKV6_NOISE, "recurrentgemma": _RGLRU_NOISE}.get(label)
+    if noise is not None:
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        _add_noise(torch, params, gen, noise)
+    return params
+
+
+def mid_decode_admissions(records):
+    """Records admitted while another request was live in another slot."""
+    return [r for r in records if r.slot >= 0 and any(
+        o.slot != r.slot and o.admit_s < r.admit_s < o.finish_s
+        for o in records)]
+
+
+#: Phase 3's continuous workload: (prompt length, budget, arrival in step
+#: units).  Three requests seed the pool; the rest arrive while it decodes
+#: and are admitted into slots the short ones free.  At a prompt bucket
+#: of 8 the 3- and 5-token prompts are shorter than recurrentgemma's
+#: 16-slot ring, so their admission rolls the ring into place.
+NARROW_WORKLOAD = ((5, 12, 0.0), (9, 4, 0.0), (13, 6, 0.0), (3, 5, 2.5),
+                   (20, 3, 3.0), (5, 7, 4.0))
+
+
+def continuous_narrow_check(torch, rt):
+    """Continuous batching on the narrow fp32 models: the same staggered
+    workload (3 slots, chunks of 4, `step_time_s=1`, an EOS, admissions
+    mid-decode) on the card (kernels, replayed graph) and on the CPU
+    (plain versions, eager step): the same tokens, decode steps, prefill
+    calls and records."""
+    import dataclasses
+    import numpy as np
+    for label, cfg in narrow_configs(torch, rt).items():
+        if hasattr(cfg, "attn_impl"):
+            cfg = dataclasses.replace(cfg, attn_impl="flash")
+        bundle = rt.bundle_for(cfg)
+        params = narrow_params(torch, rt, label, cfg)
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n, _, _ in NARROW_WORKLOAD]
+
+        def serve(device, p, eos_id):
+            engine = rt.InferenceEngine(bundle, p, max_batch=3,
+                                        max_seq_len=64, prompt_bucket=8,
+                                        device=device)
+            reqs = [rt.EngineRequest(rid=i, prompt=q, max_new_tokens=m,
+                                     arrival_s=a) for i, (q, (_, m, a))
+                    in enumerate(zip(prompts, NARROW_WORKLOAD))]
+            return engine.generate_continuous(reqs, n_slots=3, chunk=4,
+                                              step_time_s=1.0, eos_id=eos_id)
+        cpu_params = _tree_to(params, "cpu")
+        free, _ = serve("cpu", cpu_params, None)
+        eos = int(free[0][2])            # request 0's third token
+        on_cpu, st_cpu = serve("cpu", cpu_params, eos)
+        on_card, st_card = serve("cuda", params, eos)
+        recs = [[(r.rid, r.slot, r.admit_s, r.finish_s, r.tokens)
+                 for r in st.records] for st in (st_card, st_cpu)]
+        same = on_card.keys() == on_cpu.keys() and all(
+            np.array_equal(on_card[k], on_cpu[k]) for k in on_cpu)
+        admitted = len(mid_decode_admissions(st_card.records))
+        say(f"continuous fp32 {label} narrow on the card (graph, kernels) "
+            f"vs on the CPU (plain versions), 3 slots, chunk 4, "
+            f"{len(prompts)} requests, eos={eos}: tokens_equal={same} "
+            f"records_equal={recs[0] == recs[1]} decode_steps="
+            f"{st_card.decode_steps}/{st_cpu.decode_steps} prefill_calls="
+            f"{st_card.prefill_calls}/{st_cpu.prefill_calls} "
+            f"admitted_mid_decode={admitted} "
+            f"eos_cut={len(on_card[0]) < NARROW_WORKLOAD[0][1]}")
+        if not same or recs[0] != recs[1] or \
+                st_card.decode_steps != st_cpu.decode_steps or \
+                st_card.prefill_calls != st_cpu.prefill_calls:
+            fail(f"continuous {label} narrow: the card and the CPU differ")
+        if not admitted or len(on_card[0]) >= NARROW_WORKLOAD[0][1]:
+            fail(f"continuous {label} narrow: the workload admitted nothing "
+                 f"mid-decode or its EOS never fired")
 
 
 #: rwkv6 leaves the reference initialises to zero, given noise in the
@@ -1064,11 +1185,13 @@ def counted_run(torch, ops, engine, run):
     return counts, result
 
 
-def expected_launches(family, cfg, n_generate, prompt_len):
-    """Launches one path must make over `n_generate` generate calls (one
-    prefill of `prompt_len` tokens and NEW_TOKENS decode steps each)."""
+def expected_launches(family, cfg, n_generate, prompt_len, steps=None):
+    """Launches one path must make over `n_generate` prefills of
+    `prompt_len` tokens (a static generate's, a continuous seed's or a
+    one-row admission's, which launch the same kernels) and `steps` decode
+    steps (default: NEW_TOKENS a prefill, as generate calls make)."""
     n_layers = cfg.n_layers
-    steps = n_generate * NEW_TOKENS
+    steps = n_generate * NEW_TOKENS if steps is None else steps
     counts = dict.fromkeys(KERNELS, 0)
     counts["decode_attention_combine"] = 0     # 128-slot caches: one split
     counts["flash_attention_tc"] = 0
@@ -1208,17 +1331,23 @@ def decode_window(prof, engine, batch):
             f"kernel inside the graph replays (busy share not measured); "
             f"host_launches_a_step={sum(calls.values()) / NEW_TOKENS:.3f} "
             f"host_calls={dict(calls)}")
-    for window, evs in (("decode", decode),
-                        ("prefill", [e for e in kernels
-                                     if e.time_range.start < start])):
-        per = collections.defaultdict(list)
-        for e in evs:
-            if any(k in e.name for k in PORT_KERNEL_NAMES):
-                per[e.name].append(e.time_range.elapsed_us())
-        for kname, us in sorted(per.items()):
-            say(f"kernel_in_path {name} window={window} {kname[:70]}: "
-                f"launches={len(us)} device_us_per_launch="
-                f"{sum(us) / len(us):.3f}")
+    kernel_in_path(name, "decode", decode)
+    kernel_in_path(name, "prefill", [e for e in kernels
+                                     if e.time_range.start < start])
+
+
+def kernel_in_path(name, window, events):
+    """One `kernel_in_path` line a port kernel among profiled kernel
+    events: its launches and mean device time a launch."""
+    import collections
+    per = collections.defaultdict(list)
+    for e in events:
+        if any(k in e.name for k in PORT_KERNEL_NAMES):
+            per[e.name].append(e.time_range.elapsed_us())
+    for kname, us in sorted(per.items()):
+        say(f"kernel_in_path {name} window={window} {kname[:70]}: "
+            f"launches={len(us)} device_us_per_launch="
+            f"{sum(us) / len(us):.3f}")
 
 
 def long_cache_generate(torch, rt, ops, engine, cfg):
@@ -1256,8 +1385,288 @@ def long_cache_generate(torch, rt, ops, engine, cfg):
         fail(f"long cache: launch counts {counts} != expected {expected}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: continuous batching at full width
+# ---------------------------------------------------------------------------
+
+#: Phase 7(b), E13's workload (benchmarks/engine_continuous.py) at the
+#: pool's width: Poisson arrivals at CONT_RATE requests a step unit, every
+#: 4th request decoding LONG_NEW tokens and the rest SHORT_NEW, decoded in
+#: chunks of CONT_CHUNK steps.  Requests: four static groups of MAX_BATCH
+#: on llama3.2-1b, two on the larger models.
+SHORT_NEW, LONG_NEW, CONT_RATE, CONT_CHUNK = 4, 32, 2.0, 4
+CONT_GROUPS = {"llama3.2-1b": 4}
+#: Where the one-row admission prefill of phase 7 is timed: at global
+#: positions [ADMIT_OFFSET, ADMIT_OFFSET + bucketed prompt).
+ADMIT_OFFSET = 32
+
+
+def poisson_workload(rt, cfg, prompt_len, n):
+    """E13's requests: Poisson arrivals (seed 11), prompts of `prompt_len`
+    random tokens (seed 7), every 4th request LONG_NEW tokens long."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    ap = rt.ArrivalProcess(interval_s=1.0 / CONT_RATE, kind="poisson",
+                           seed=11)
+    return [rt.EngineRequest(
+        rid=r.rid, prompt=rng.integers(1, cfg.vocab_size, prompt_len)
+        .astype(np.int32),
+        max_new_tokens=LONG_NEW if r.rid % 4 == 3 else SHORT_NEW,
+        arrival_s=r.arrival_s) for r in ap.generate(n)]
+
+
+def continuous_full_width(torch, rt, ops, engine, cfg, prompts, prompt_len,
+                          n_requests):
+    """Phase 7 on one path's engine (n_slots MAX_BATCH, the graph phase 4
+    captured at that batch): (a) every request at t=0 with equal budgets,
+    streams equal to `generate`'s at chunk NEW_TOKENS and 3; (b) E13's
+    Poisson workload through `generate_continuous` and through static
+    groups of MAX_BATCH in arrival order, `step_time_s=1`; (c) the kernel
+    executions of all of it, counted as in phase 5, equal to its prefills
+    (seeds and one-row admissions alike) times a prefill's launches plus
+    its decode steps times a step's.  Returns the counts."""
+    import numpy as np
+    arch, family = cfg.name, engine.bundle.family
+    done = {"prefills": 0, "steps": 0}
+    out = {}
+
+    def note(prefills, steps):
+        done["prefills"] += prefills
+        done["steps"] += steps
+
+    def run():
+        ref, _ = engine.generate(prompts, NEW_TOKENS)
+        note(1, NEW_TOKENS)
+        for chunk in (NEW_TOKENS, 3):
+            streams, st = engine.generate_continuous(
+                [rt.EngineRequest(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                 for i, p in enumerate(prompts)],
+                n_slots=MAX_BATCH, chunk=chunk)
+            note(st.prefill_calls, st.decode_steps)
+            equal = all(np.array_equal(streams[i], ref[i])
+                        for i in range(len(prompts)))
+            say(f"continuous identity {arch} n_slots={MAX_BATCH} "
+                f"chunk={chunk}: tokens_equal={equal} decode_steps="
+                f"{st.decode_steps} prefill_calls={st.prefill_calls}")
+            if not equal or (st.decode_steps, st.prefill_calls) != \
+                    (NEW_TOKENS, 1):
+                fail(f"{arch}: continuous at chunk {chunk} is not the "
+                     "static schedule")
+        reqs = poisson_workload(rt, cfg, prompt_len, n_requests)
+        admits = sum(n for k, n in engine.calls.items() if k[0] == "admit")
+        t0 = time.monotonic()
+        streams, st = engine.generate_continuous(
+            reqs, n_slots=MAX_BATCH, chunk=CONT_CHUNK, step_time_s=1.0)
+        out["cont_wall"] = time.monotonic() - t0
+        out["admissions"] = sum(n for k, n in engine.calls.items()
+                                if k[0] == "admit") - admits
+        note(st.prefill_calls, st.decode_steps)
+        if st.n_requests != n_requests or any(
+                len(streams[r.rid]) != r.max_new_tokens for r in reqs):
+            fail(f"{arch}: the Poisson workload was not served in full")
+        if not out["admissions"]:
+            fail(f"{arch}: the Poisson workload admitted nothing")
+        out["st"] = st
+        # Static groups in arrival order, each decoding its longest
+        # member's budget: model time as E13 counts it (a unit a prefill
+        # and a decode step, a group starting when its last member has
+        # arrived), wall time and the graph's step as measured.
+        units = static_decode_s = 0.0
+        static_steps = 0
+        t0 = time.monotonic()
+        for g in range(0, n_requests, MAX_BATCH):
+            grp = reqs[g:g + MAX_BATCH]
+            steps = max(r.max_new_tokens for r in grp)
+            units = max(units, max(r.arrival_s for r in grp)) + 1.0 + steps
+            _, gst = engine.generate([r.prompt for r in grp], steps)
+            note(1, steps)
+            static_decode_s += gst.decode_s
+            static_steps += steps
+        out.update(static_wall=time.monotonic() - t0, static_units=units,
+                   static_step_ms=1e3 * static_decode_s / static_steps)
+
+    counts, _ = counted_run(torch, ops, engine, run)
+    expected = expected_launches(family, cfg, done["prefills"], prompt_len,
+                                 done["steps"])
+    say(f"launch counts continuous {arch} over {done['prefills']} prefills "
+        f"(static generates, continuous seeds and one-row admissions) and "
+        f"{done['steps']} decode steps: {counts} expected {expected}")
+    if counts != expected:
+        fail(f"{arch}: continuous launch counts {counts} != expected "
+             f"{expected}")
+    st = out["st"]
+    cont_step_ms = 1e3 * st.decode_s / st.decode_steps
+    say(f"continuous poisson {arch}: requests={n_requests} rate="
+        f"{CONT_RATE}/step short/long={SHORT_NEW}/{LONG_NEW} n_slots="
+        f"{MAX_BATCH} chunk={CONT_CHUNK} makespan_units continuous="
+        f"{st.sim_s} static={out['static_units']} static_over_continuous="
+        f"{out['static_units'] / st.sim_s:.4f} goodput_per_unit "
+        f"continuous={st.goodput_rps:.5f} static="
+        f"{n_requests / out['static_units']:.5f} wall_s continuous="
+        f"{out['cont_wall']:.6f} static={out['static_wall']:.6f} "
+        f"mean_occupancy={st.mean_occupancy:.4f} mean_queue_wait_units="
+        f"{st.mean_queue_wait_s:.4f} decode_steps={st.decode_steps} "
+        f"prefill_calls={st.prefill_calls} admissions={out['admissions']} "
+        f"continuous_step_ms={cont_step_ms:.4f} static_graph_step_ms="
+        f"{out['static_step_ms']:.4f} continuous_over_static_step="
+        f"{cont_step_ms / out['static_step_ms']:.4f}")
+    return counts
+
+
+def admission_prefill(torch, engine, cfg, prompt_len):
+    """Continuous admission's one-row prefill alone, at the path's prompt
+    bucket: a row of `prompt_len` - 3 tokens left-padded to the bucket, at
+    global offset ADMIT_OFFSET, into a one-row cache.  Host time around it
+    with syncs (median of 5 after a warm-up) and `kernel_in_path
+    window=admit` from one profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    bucket = engine.prompt_bucket
+    lb = -(-(prompt_len - 3) // bucket) * bucket
+    toks = torch.randint(1, cfg.vocab_size, (1, lb), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3))
+    mask = torch.arange(lb, device="cuda")[None] >= 3
+    toks = torch.where(mask, toks, torch.zeros_like(toks))
+    cache = engine.bundle.init_cache(1, MAX_SEQ_LEN, "cuda")
+
+    def call():
+        with torch.inference_mode():
+            engine.bundle.prefill(engine.params, toks, cache,
+                                  attn_mask=mask, pos_offset=ADMIT_OFFSET)
+        torch.cuda.synchronize()
+    call()
+    times = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        call()
+        times.append(time.monotonic() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    say(f"admission prefill {cfg.name}: one row of {prompt_len - 3} tokens "
+        f"in a bucket of {lb} at pos_offset {ADMIT_OFFSET}: ms="
+        f"{1e3 * statistics.median(times):.4f} runs="
+        f"{[round(1e3 * t, 4) for t in times]} kernels={len(kernels)}")
+    kernel_in_path(cfg.name, "admit", kernels)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: measured energy through NVML
+# ---------------------------------------------------------------------------
+
+#: Phase 8's continuous pulls: ENERGY_REQUESTS Poisson arrivals at
+#: ENERGY_RATE a second of the simulation clock (wall time there), so the
+#: arm's pool fills; Camel rounds a scheduler: llama3.2-1b's, else 2.
+ENERGY_REQUESTS, ENERGY_RATE = 32, 200.0
+ENERGY_ROUNDS = {"llama3.2-1b": 4}
+
+
+def nvml_energy_mj(sensor):
+    """The board's energy counter since the NVIDIA driver loaded, in mJ
+    (`nvmlDeviceGetTotalEnergyConsumption`, through the sensor's NVML)."""
+    import ctypes
+    fn = sensor.lib.nvmlDeviceGetTotalEnergyConsumption
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    fn.restype = ctypes.c_int
+    mj = ctypes.c_ulonglong()
+    rc = fn(sensor.handle, ctypes.byref(mj))
+    if rc != 0:
+        fail(f"nvmlDeviceGetTotalEnergyConsumption returned {rc}")
+    return mj.value
+
+
+def same_card(torch, sensor):
+    """Fail unless the NVML board `sensor` reads is CUDA device 0."""
+    nvml = sensor.uuid().lower().removeprefix("gpu-")
+    cuda = str(torch.cuda.get_device_properties(0).uuid).lower() \
+        .removeprefix("gpu-")
+    if nvml != cuda:
+        fail(f"NVML index {sensor.index} is {nvml}, CUDA device 0 is {cuda}")
+    return nvml
+
+
+def measured_energy(torch, rt, engine, cfg, prompt_len, prompts, limit_w):
+    """Phase 8 on one path's engine: Camel rounds through
+    `EngineEnvironment(sensor="nvml")` with the static scheduler and the
+    continuous one, every pull's power the meter's average over NVML;
+    then one window of >= 1 s of generates at MAX_BATCH metered beside
+    the board's energy counter."""
+    import math
+    arch = cfg.name
+    space = rt.make_space(f"engine/{arch}")
+    rounds = ENERGY_ROUNDS.get(arch, 2)
+    for scheduler in ("static", "continuous"):
+        env = rt.EngineEnvironment(
+            engine, rt.energy.JETSON_AGX_ORIN,
+            rt.energy.ORIN_WORKLOADS["llama3.2-1b"], prompt_len=prompt_len,
+            max_new_tokens=NEW_TOKENS, seed=0, sensor="nvml",
+            scheduler=scheduler, requests_per_pull=ENERGY_REQUESTS,
+            arrival_rate=ENERGY_RATE)
+        try:
+            uuid = same_card(torch, env.sensor)
+            cm = rt.CostModel(alpha=0.5)
+            ref_obs = env.pull(space.values(space.corner()), 0)
+            cm = cm.with_reference(ref_obs.energy, ref_obs.latency)
+            policy = rt.make_policy("camel", prior_mu=1.0, prior_sigma=0.1)
+            res = rt.Controller(space, policy, cm, seed=0).run(env, rounds)
+        finally:
+            env.sensor.close()
+        pulls = [("ref", space.values(space.corner()), ref_obs)] + \
+            [(r.t, r.knobs, r.obs) for r in res.records]
+        for t, knobs, obs in pulls:
+            md = obs.metadata
+            say(f"energy pull {arch} {scheduler} {t} batch={knobs['batch']} "
+                f"freq_mhz={knobs['freq_mhz']} sensor={md['sensor']} "
+                f"avg_watts={obs.power:.3f} sensor_joules="
+                f"{md['sensor_joules']:.4f} sensor_peak_w="
+                f"{md['sensor_peak_w']:.3f} sensor_samples="
+                f"{md['sensor_samples']} prefill_s={md['prefill_s']:.6f} "
+                f"decode_s={md['decode_s']:.6f} energy_j_per_req="
+                f"{obs.energy:.5f} latency_s_per_req={obs.latency:.5f}"
+                + (f" requests={md['n_requests']} decode_steps="
+                   f"{md['decode_steps']} mean_occupancy="
+                   f"{md['mean_occupancy']:.3f}"
+                   if scheduler == "continuous" else ""))
+            if md["sensor"] != "nvml:0" or not math.isfinite(obs.power) \
+                    or not 0 < obs.power <= limit_w:
+                fail(f"{arch} {scheduler}: pull {t} read {md['sensor']} "
+                     f"at {obs.power} W (limit {limit_w} W)")
+        say(f"controller summary {arch} {scheduler} (power measured through "
+            f"NVML on board {uuid}): " + json.dumps(res.summary(),
+                                                    default=str))
+    sensor = rt.NVMLSensor()
+    try:
+        same_card(torch, sensor)
+        meter = rt.EnergyMeter(sensor)
+        n = 0
+        with meter.measure() as m:
+            e0, t0 = nvml_energy_mj(sensor), time.monotonic()
+            while n == 0 or time.monotonic() - t0 < 1.0:
+                engine.generate(prompts, NEW_TOKENS)
+                n += 1
+            e1, dt = nvml_energy_mj(sensor), time.monotonic() - t0
+    finally:
+        sensor.close()
+    counter_j = (e1 - e0) / 1e3
+    say(f"energy window {arch} b={len(prompts)}: generates={n} "
+        f"meter_window_s={m.duration_s:.6f} meter_joules={m.joules:.4f} "
+        f"meter_avg_w={m.avg_watts:.3f} meter_peak_w={m.peak_watts:.3f} "
+        f"meter_samples={m.n_samples} counter_window_s={dt:.6f} "
+        f"counter_joules={counter_j:.4f} counter_avg_w={counter_j / dt:.3f}"
+        + (f" meter_over_counter_avg_w={m.avg_watts * dt / counter_j:.4f}"
+           if counter_j > 0 else ""))
+    if not (math.isfinite(m.avg_watts) and 0 < m.avg_watts <= limit_w) \
+            or counter_j <= 0:
+        fail(f"{arch}: the energy window read {m.avg_watts} W, the counter "
+             f"{counter_j} J")
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    t_start = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this check needs a GPU")
@@ -1298,18 +1707,25 @@ def main() -> None:
     from repro_torch.models import rglru, rwkv6, transformer
     from repro_torch.models.moe import MoEConfig
     from repro_torch.models.registry import bundle_for
+    from repro_torch.obs import EnergyMeter, NVMLSensor
     from repro_torch.platform import make_space
     from repro_torch.serving import energy
     from repro_torch.serving.engine import EngineEnvironment, InferenceEngine
+    from repro_torch.serving.requests import ArrivalProcess
+    from repro_torch.serving.scheduler import EngineRequest
     rt = argparse.Namespace(
         configs=configs, make_policy=make_policy, Controller=Controller,
         CostModel=CostModel, transformer=transformer, rwkv6=rwkv6,
         rglru=rglru, bundle_for=bundle_for,
         make_space=make_space, energy=energy, MoEConfig=MoEConfig,
-        EngineEnvironment=EngineEnvironment, InferenceEngine=InferenceEngine)
+        EngineEnvironment=EngineEnvironment, InferenceEngine=InferenceEngine,
+        EngineRequest=EngineRequest, ArrivalProcess=ArrivalProcess,
+        NVMLSensor=NVMLSensor, EnergyMeter=EnergyMeter)
     model_check(torch, rt)
     rwkv6_check(torch, rt)
     rglru_model_check(torch, rt)
+    continuous_narrow_check(torch, rt)
+    limit_w = float(smi.split(",")[-1].split()[0])
 
     # Phases 4 and 5, once per main path
     totals = dict.fromkeys(ops, 0)
@@ -1329,9 +1745,18 @@ def main() -> None:
         profile_generate(torch, engine, prompts)
         if arch == "llama3.2-1b":
             long_cache_generate(torch, rt, ops, engine, cfg)
+        # Phases 7 and 8
+        counts = continuous_full_width(
+            torch, rt, ops, engine, cfg, prompts, prompt_len,
+            CONT_GROUPS.get(arch, 2) * MAX_BATCH)
+        for name in totals:
+            totals[name] += counts[name]
+        admission_prefill(torch, engine, cfg, prompt_len)
+        measured_energy(torch, rt, engine, cfg, prompt_len, prompts, limit_w)
         del engine
         torch.cuda.empty_cache()
 
+    say(f"chip_smoke total_s={time.monotonic() - t_start:.1f}")
     record = []
     for name, (source, replaces) in KERNELS.items():
         row = main_rows[name]

@@ -7,37 +7,59 @@ Mode:
                    and frequency change an actual batched inference call,
                    and the controller's summary is printed as JSON.
 
-Runs on CUDA unless `--device cpu` is given.  Energy is the Jetson Orin
-analytical board model applied to measured wall time (modelled, not
-measured on the card).  The reference's search/validate/tpu/fleet modes
-are not ported yet.
+Options:
+  --sensor SPEC    power source of every pull (`repro_torch.obs.make_sensor`):
+                   `simulated` (default — the Jetson Orin analytical board
+                   model, bit-identical to not sensing), `nvml` (the
+                   card's measured board power through NVML), `sysfs`,
+                   `replay:<path>`, `record:<path>` or `fallback:a,b,...`.
+                   The engine mode meters each pull with it.
+  --scheduler S    `static` (one fixed batch a pull) or `continuous`
+                   (slot-level admission over Poisson arrivals with ragged
+                   output lengths: the batch arm becomes the slot pool's
+                   width).
+  --metrics-out PATH   open a `repro_torch.obs` session for the run: the
+                   controller's rounds, pulls and commit and the engine's
+                   prefill/decode/request spans go to a JSONL trace with
+                   the metrics snapshot appended; summarize it with
+                   `tools/trace_report.py PATH`.
+
+Runs on CUDA unless `--device cpu` is given.  The reference's
+search/validate/tpu/fleet modes and `--faults` are not ported yet.
 
 Usage (from the repository root; `--arch` is llama3.2-1b, olmoe-1b-7b,
 rwkv6-3b or recurrentgemma-9b):
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch llama3.2-1b --rounds 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
-        --arch rwkv6-3b --rounds 8
+        --scheduler continuous --sensor nvml --rounds 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
-        --arch recurrentgemma-9b --rounds 8
+        --arch rwkv6-3b --rounds 8 --metrics-out trace.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
+from repro_torch import obs
 from repro_torch.core import baselines, controller, cost
 from repro_torch.platform import make_env, make_space
 
 
 def engine_mode(arch: str, rounds: int, alpha: float, seed: int,
-                decode_impl: str = "fused", device=None) -> dict:
+                sensor: str = "simulated", decode_impl: str = "fused",
+                scheduler: str = "static", device=None) -> dict:
     """Reference the cost model at the (max f, max b) corner, then run
-    `rounds` rounds of CamelTS against the engine environment."""
+    `rounds` rounds of CamelTS against the engine environment.  `sensor`
+    meters every pull (the default "simulated" sensor reads the same
+    board model the unmetered path evaluates, bit-identically);
+    `scheduler` picks the serving discipline per pull."""
     name = f"engine/{arch}"
     env = make_env(name, seed=seed, prompt_len=16, max_new_tokens=8,
-                   decode_impl=decode_impl, device=device)
+                   sensor=sensor, decode_impl=decode_impl,
+                   scheduler=scheduler, device=device)
     space = make_space(name)
     cm = cost.CostModel(alpha=alpha)
     e0, l0 = env.pull(space.values(space.corner()), 0)
@@ -55,15 +77,31 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=49)
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scheduler", default="static",
+                    choices=["static", "continuous"],
+                    help="engine mode serving discipline: static batches "
+                         "or continuous (slot-level) batching")
     ap.add_argument("--decode-impl", default="fused",
                     choices=["fused", "loop"],
                     help="fused (device token buffer, one host copy per "
                          "generate) or loop (a host copy per token)")
+    ap.add_argument("--sensor", default="simulated",
+                    help="power source: simulated | sysfs | nvml | "
+                         "replay:<path> | record:<path> | fallback:a,b "
+                         "(the engine mode meters every pull)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the run's JSONL event trace + metrics "
+                         "snapshot here (summarize with "
+                         "tools/trace_report.py)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch path)")
     args = ap.parse_args()
-    out = engine_mode(args.arch, args.rounds, args.alpha, args.seed,
-                      decode_impl=args.decode_impl, device=args.device)
+    session = obs.observing(args.metrics_out) if args.metrics_out \
+        else contextlib.nullcontext()
+    with session:
+        out = engine_mode(args.arch, args.rounds, args.alpha, args.seed,
+                          sensor=args.sensor, decode_impl=args.decode_impl,
+                          scheduler=args.scheduler, device=args.device)
     print(json.dumps(out, indent=2, default=str))
 
 

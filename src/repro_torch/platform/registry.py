@@ -133,11 +133,16 @@ def _config_archs() -> List[str]:
 def _engine_live(arch: str, *, seed: int = 0, max_batch: int = 28,
                  max_seq_len: int = 128, prompt_len: int = 16,
                  max_new_tokens: int = 8, arrival_rate: float = 1.0,
+                 sensor=None, sample_hz: float = 20.0,
                  decode_impl: str = "fused", prompt_bucket: int = 16,
+                 scheduler: str = "static",
+                 requests_per_pull=None, eos_id=None, chunk: int = 16,
                  device=None):
     """The engine backend on `arch`'s smoke config with seeded random
     weights, as the reference builds it; runs on CUDA unless `device`
-    says otherwise."""
+    says otherwise.  `sensor`/`sample_hz` meter each pull and
+    `scheduler`/`requests_per_pull`/`eos_id`/`chunk` pick the serving
+    discipline (`serving.engine.EngineEnvironment`)."""
     import repro_torch.configs as configs_mod
     from repro_torch._device import resolve_device
     from repro_torch.models.registry import bundle_for
@@ -160,4 +165,8 @@ def _engine_live(arch: str, *, seed: int = 0, max_batch: int = 28,
     return EngineEnvironment(engine, board, work,
                              arrival_rate=arrival_rate,
                              prompt_len=prompt_len,
-                             max_new_tokens=max_new_tokens, seed=seed)
+                             max_new_tokens=max_new_tokens, seed=seed,
+                             sensor=sensor, sample_hz=sample_hz,
+                             scheduler=scheduler,
+                             requests_per_pull=requests_per_pull,
+                             eos_id=eos_id, chunk=chunk)

@@ -776,3 +776,62 @@ def test_a_failed_capture_raises_and_nothing_decodes_eagerly(card):
     out, _ = _card_engine(syncing, params, "loop").generate(prompts, 3)
     ref, _ = _card_engine(bundle, params, "loop").generate(prompts, 3)
     np.testing.assert_array_equal(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching over the graph, and the board's power through NVML
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_continuous_identity_graph_equals_eager_loop(card, arch):
+    """Every request at t=0, equal budgets, no EOS: `generate_continuous`
+    (a replay of the pool's graph a step, chunks of 8 and of 3) gives the
+    eager loop's `generate` tokens bit for bit, and replays the one graph
+    the static path captured at that batch once a decode step."""
+    from repro_torch.serving.scheduler import EngineRequest
+    bundle, params = _smoke_bundle(arch)
+    fused = _card_engine(bundle, params)
+    prompts = _card_prompts([5, 8, 2], seed=5)
+    ref, _ = _card_engine(bundle, params, "loop").generate(prompts, 6)
+    out, _ = fused.generate(prompts, 6)
+    np.testing.assert_array_equal(out, ref)
+    (graph,) = fused.decode_graphs.values()
+    for chunk in (8, 3):
+        replays = graph.replays
+        reqs = [EngineRequest(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        streams, st = fused.generate_continuous(reqs, n_slots=3,
+                                                chunk=chunk)
+        assert st.decode_steps == 6 and st.prefill_calls == 1
+        assert graph.replays - replays == 6
+        for i in range(3):
+            np.testing.assert_array_equal(streams[i], ref[i])
+    assert fused.compile_counts["decode_fused"] == 1
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.requires_cuda
+def test_nvml_reads_finite_watts_within_the_power_limit(card):
+    """The ctypes NVML sensor reads the board: finite watts in (0, power
+    limit], on the board whose UUID is CUDA device 0's."""
+    import math
+    import subprocess
+
+    from repro_torch.obs import NVMLSensor
+    limit = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=power.limit",
+         "--format=csv,noheader,nounits", "--id=0"], capture_output=True,
+        text=True, check=True).stdout.split()[0])
+    sensor = NVMLSensor()
+    try:
+        watts = [sensor.read_watts() for _ in range(5)]
+        uuid = sensor.uuid()
+    finally:
+        sensor.close()
+    assert sensor.name == "nvml:0"
+    assert all(math.isfinite(w) and 0 < w <= limit for w in watts), watts
+    cuda_uuid = str(torch.cuda.get_device_properties(0).uuid)
+    assert uuid.lower().removeprefix("gpu-") == \
+        cuda_uuid.lower().removeprefix("gpu-")

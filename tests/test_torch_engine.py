@@ -151,7 +151,8 @@ def test_compile_counts_stay_flat_across_repeated_shapes():
     for seed in range(3):
         eng.generate(_prompts([5, 7], seed=seed), 4)
     assert eng.compile_counts == {"prefill": 1, "decode_loop": 0,
-                                  "decode_fused": 1, "cache_pool": 1}
+                                  "admit": 0, "decode_fused": 1,
+                                  "cache_pool": 1}
     assert eng.calls["prefill", 2, 16] == 3
     eng.generate(_prompts([20], seed=9), 4)
     assert eng.compile_counts["prefill"] == 2
