@@ -11,7 +11,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and fp32, at the shapes the four engine paths give it (llama3.2-1b,
      olmoe-1b-7b, rwkv6-3b and recurrentgemma-9b geometry), decode
      attention also over a 4096-slot cache at batch 4 (split-KV plus the
-     combine kernel) and 28, and the grouped GEMM also at olmoe's prefill
+     combine kernel) and 28, the transformer family's heads in bf16
+     (decode attention at batch 28 over 128 slots for qwen2-1.5b,
+     qwen2.5-3b, smollm-360m, starcoder2-7b and phi-3-vision's head_dim
+     96; prefill attention over 28 x 16 tokens at those heads and at
+     gemma2-27b's, softcap 50, query scale 144^-1/2 and window 4096, and
+     gemma2's heads over 4 x 4000 tokens, whose library call is a compiled
+     `flex_attention` with a tanh score_mod where it compiles, else none;
+     RMSNorm at 28 and 448 rows of 1536, 960, 3072 and 4608, and at the
+     one-row admission prefill's 16 x 2048, 16 x 4096 and 256 x 128 rows),
+     and the grouped GEMM also at olmoe's prefill
      down product, at batch 4's 32 rows an expert and at 300 (two row
      blocks), with its device
      time (CUDA events
@@ -73,7 +82,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      models: one staggered workload (3 slots, chunks of 4, prompt bucket
      8, `step_time_s=1`, an EOS, admissions mid-decode, recurrentgemma's
      short admitted prompts rolled into its ring) on the card and on the
-     CPU gives the same tokens, decode steps, prefill calls and records;
+     CPU gives the same tokens, decode steps, prefill calls and records.
+     Then the transformer family, narrow and fp32, flash (kernels) vs
+     naive on the card and the card vs the CPU (plain versions), within
+     1e-4, over a left-padded 40-token prefill and 8 decode steps: qwen2
+     (q/k/v biases, a decode group of 6), starcoder2 (LayerNorm, dense
+     GELU MLP, biases, a group of 9), gemma2 (local/global interleave, a
+     ring of 8 slots the prefill rolls and the decode wraps, both
+     softcaps, post-norms, the embedding and query scales), qwen2 with
+     the int8 cache, phi-3 (head_dim 96, 8 prefix embeddings, prompts
+     without pads) and mixtral-smoke's shape (the grouped GEMM over ring
+     local layers); and the continuous workload on the gemma2 and int8
+     narrow models (gemma2 at a prompt bucket of 4, so short admitted
+     prompts are rolled into its ring);
   4. the main paths: llama3.2-1b (4a) and olmoe-1b-7b (4b) at full width
      (16 layers, d_model 2048, bf16, attn_impl="flash", 16-token prompts)
      and rwkv6-3b (4c: 32 layers, d_model 2560, bf16, 64-token prompts in
@@ -81,7 +102,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      recurrentgemma-9b (4d: 38 blocks, d_model 4096, bf16,
      attn_impl="flash", 16-token prompts; its attention caches are plain
      128-slot caches, min(128, 2048), so the window is inert here and the
-     ring is exercised by phase 3), with seeded
+     ring is exercised by phase 3), then the transformer family at full
+     width, bf16, attn_impl="flash", 16-token prompts: qwen2.5-3b (4e, the
+     paper's second edge model) and qwen2-1.5b (4f) at 8 rounds,
+     smollm-360m (4g), starcoder2-7b (4h) and phi-3-vision-4.2b (4i, its
+     backbone on tokens) at 4, and gemma2-27b (4j, 54.5 GB of bf16
+     weights, last, after every earlier engine is freed) at 4, with seeded
      random weights made on the card, behind the port's InferenceEngine
      and EngineEnvironment, each driven by CostModel + Controller + CamelTS
      for 8 rounds as `serve.py --mode engine` does, with per-pull prefill
@@ -109,9 +135,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with the same params over a 4096-slot cache (batch 4, 4000-token
      prompts): decode attention splits the KV axis there, and the kernel
      executions of that generate (its graph's replays included) must show
-     the combine kernel once a layer a decode step.
+     the combine kernel once a layer a decode step.  After qwen2-1.5b's,
+     the int8 cache at that size (batch 4, 4096 slots, 4000-token
+     prompts) against the native one on the same params: prefill and
+     decode step of each, in turns, the int8 graph's tokens equal to its
+     eager loop's, and its kernel executions (decode attention over the
+     dequantized cache, once a layer a step, split, with the combine).
 
-  7. after each path, continuous batching on its engine at MAX_BATCH
+  7. after each of the first five paths (qwen2.5-3b's included), continuous
+     batching on its engine at MAX_BATCH
      slots (the graph phase 4 captured at that batch, replayed a step):
      (a) every request at t=0 with equal budgets gives `generate`'s tokens
      at chunk 8 and 3; (b) E13's workload (Poisson arrivals, every 4th
@@ -122,8 +154,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (b), equal to their prefills (static, seed and one-row admission
      alike) times a prefill's launches plus their decode steps times a
      step's; then the one-row admission prefill alone, timed and profiled
-     (`kernel_in_path window=admit`);
-  8. after each path, measured energy: Camel rounds through
+     (`kernel_in_path window=admit`); on gemma2-27b (a) and (c) alone,
+     which exercise its two cache groups in the pool;
+  8. after each of the first five paths, measured energy: Camel rounds through
      `EngineEnvironment(sensor="nvml")` with the static scheduler and the
      continuous one, each pull's power the meter's average over NVML,
      failing unless the sensor is `nvml:0` on the board whose UUID is
@@ -163,15 +196,22 @@ TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-5}
 #: Relative tolerance (|err| <= tol * (1 + |ref|)) of the kernels whose
 #: outputs are long sums: the grouped GEMM, WKV6 and the RG-LRU scan.
 SUM_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
-ROUNDS = 8
 MAX_BATCH, MAX_SEQ_LEN, PROMPT_LEN, NEW_TOKENS = 28, 128, 16, 8
-#: The main paths: (arch, prompt length, prompt bucket).  rwkv6-3b's
+#: The main paths: (arch, prompt length, prompt bucket, Camel rounds,
+#: phases 7-8: "all", "identity" (7(a) and 7(c)) or "none").  rwkv6-3b's
 #: prompts are two whole chunks of 32, so its prefill runs the chunked
-#: kernel once a layer and no per-token tail.
-PATHS = (("llama3.2-1b", PROMPT_LEN, PROMPT_LEN),
-         ("olmoe-1b-7b", PROMPT_LEN, PROMPT_LEN),
-         ("rwkv6-3b", 64, 32),
-         ("recurrentgemma-9b", PROMPT_LEN, PROMPT_LEN))
+#: kernel once a layer and no per-token tail.  gemma2-27b runs last: its
+#: weights take 54.5 GB of the card.
+PATHS = (("llama3.2-1b", PROMPT_LEN, PROMPT_LEN, 8, "all"),
+         ("olmoe-1b-7b", PROMPT_LEN, PROMPT_LEN, 8, "all"),
+         ("rwkv6-3b", 64, 32, 8, "all"),
+         ("recurrentgemma-9b", PROMPT_LEN, PROMPT_LEN, 8, "all"),
+         ("qwen2.5-3b", PROMPT_LEN, PROMPT_LEN, 8, "all"),
+         ("qwen2-1.5b", PROMPT_LEN, PROMPT_LEN, 8, "none"),
+         ("smollm-360m", PROMPT_LEN, PROMPT_LEN, 4, "none"),
+         ("starcoder2-7b", PROMPT_LEN, PROMPT_LEN, 4, "none"),
+         ("phi-3-vision-4.2b", PROMPT_LEN, PROMPT_LEN, 4, "none"),
+         ("gemma2-27b", PROMPT_LEN, PROMPT_LEN, 4, "identity"))
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
@@ -208,6 +248,8 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cudaMemsetAsync")
 WKV6_LIBRARY_NOTE = ("no single PyTorch call computes the WKV6 recurrence "
                      "(no library kernel for it), so library_ms is null")
+#: gemma2-27b's attention: softcap 50 and query scale (d_model / H)^-1/2.
+GEMMA2_SOFTCAP, GEMMA2_SCALE = 50.0, (4608 / 32) ** -0.5
 RGLRU_LIBRARY_NOTE = ("no single PyTorch call computes a first-order linear "
                       "recurrence (no library kernel for it), so library_ms "
                       "is null")
@@ -444,14 +486,16 @@ def kernel_checks(torch, ops):
               4 * keys * h * d, is_main, to_max_ref=s_len == LONG_SEQ_LEN)
 
     def prefill_case(dtype_name, h, kvh, d, is_main, window=0,
-                     b=MAX_BATCH, sq=PROMPT_LEN):
+                     b=MAX_BATCH, sq=PROMPT_LEN, softcap=0.0, scale=None):
         """Prefill attention over `b` prompts of `sq` tokens, held row by
         row to the plain version.  The engine's prompts carry left pads
         (kv_start); the long ones do not.  Over long prompts the plain
         version's [B, KVH, G, Sq, Sk] fp32 scores (~33 GB at llama's 4 x
         4000) are too large to run at batch b, so there it runs one prompt
         at a time for the comparison and is timed at batch 1 (3 windows of
-        3 calls); the kernel and SDPA are timed at batch b."""
+        3 calls); the kernel and SDPA are timed at batch b.  A softcapped
+        row's library call is `flex_attention` (`flex_library`): SDPA
+        has no softcap."""
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
         fa = ops["flash_attention"]
@@ -467,9 +511,13 @@ def kernel_checks(torch, ops):
             mask = mask & (pos[None, None, :] >= starts[:, None, None].long())
         pairs = int(mask.sum()) * (b // mask.shape[0])
         shape = (b, sq, kvh, h // kvh, d) + ((f"window {window}",)
-                                             if window else ())
+                                             if window else ()) + (
+            (f"softcap {softcap:g} scale {scale:.6f}",) if softcap else ())
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        if long and not window:
+        if softcap:
+            library = flex_library(torch, qt, kt, vt, scale, softcap, window,
+                                   starts, shape)
+        elif long and not window:
             def library():
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -480,11 +528,13 @@ def kernel_checks(torch, ops):
 
         def kernel():
             return fa.flash_attention(q, k, v, window=window,
+                                      softcap=softcap, scale=scale,
                                       kv_start=starts)
 
         def plain(lo=0, hi=1 if long else b):
             return fa.attention_ref(q[lo:hi], k[lo:hi], v[lo:hi],
-                                    window=window, kv_start=starts)
+                                    window=window, softcap=softcap,
+                                    scale=scale, kv_start=starts)
         check("flash_attention", dtype_name, shape, kernel, plain, library,
               (2 * q.numel() + 2 * k.numel()) * e + (0 if long else 4 * b),
               4 * pairs * h * d, is_main, per_row=True,
@@ -669,6 +719,7 @@ def kernel_checks(torch, ops):
             prefill_case(dtype_name, 16, 1, 256, False, window=2048,
                          b=LONG_BATCH, sq=LONG_PROMPT)
             torch.cuda.empty_cache()
+            family_rows(dtype_name, decode_case, prefill_case, check, rnd)
 
         # Grouped expert GEMM at olmoe-1b-7b's products: decode gate/up and
         # down (64 experts x capacity 8), prefill gate/up and down at batch
@@ -734,16 +785,114 @@ def kernel_checks(torch, ops):
     return main
 
 
+#: The transformer family's heads on phase 2's rows: (path, H, KVH, D).
+FAMILY_HEADS = (("qwen2-1.5b", 12, 2, 128), ("qwen2.5-3b", 16, 2, 128),
+                ("smollm-360m", 15, 5, 64), ("starcoder2-7b", 36, 4, 128),
+                ("phi-3-vision-4.2b", 32, 32, 96))
+#: The family's RMSNorm widths (starcoder2's LayerNorm has no kernel).
+FAMILY_NORM_WIDTHS = (1536, 960, 3072, 4608)
+#: Continuous admission's one-row prefill: RMSNorm over its 16 tokens at
+#: d 2048 (llama, olmoe) and 4096 (recurrentgemma), and olmoe's qk-norm
+#: over 16 tokens x 16 heads of 128.
+ADMISSION_NORM_ROWS = ((1, PROMPT_LEN, 2048), (1, PROMPT_LEN, 4096),
+                       (1, PROMPT_LEN, 16, 128))
+
+
+def family_rows(dtype_name, decode_case, prefill_case, check, rnd):
+    """Phase 2's rows of the transformer family, in bf16 (the paths' type):
+    decode attention at batch 28 over the 128-slot cache and prefill
+    attention over 28 x 16 tokens at each new path's heads, decode
+    attention at qwen2-1.5b's heads over phase 6's 4096-slot cache at
+    batch 4, gemma2-27b's prefill (softcap, query scale, window 4096) over
+    28 x 16 and 4 x 4000 tokens, RMSNorm at each new width, and the
+    admission's RMSNorm rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as rms
+    for _, h, kvh, d in FAMILY_HEADS:
+        decode_case(dtype_name, MAX_BATCH, MAX_SEQ_LEN, 16, 25, h, kvh, d,
+                    False)
+        prefill_case(dtype_name, h, kvh, d, False)
+    # Phase 6's decode attention: qwen2-1.5b's heads at batch 4 over the
+    # full 4096-slot cache (its split plan and the combine kernel).
+    decode_case(dtype_name, LONG_BATCH, LONG_SEQ_LEN, LONG_SEQ_LEN,
+                LONG_SEQ_LEN + 1, 12, 2, 128, False)
+    prefill_case(dtype_name, 32, 16, 128, False, window=4096,
+                 softcap=GEMMA2_SOFTCAP, scale=GEMMA2_SCALE)
+    prefill_case(dtype_name, 32, 16, 128, False, window=4096,
+                 softcap=GEMMA2_SOFTCAP, scale=GEMMA2_SCALE, b=LONG_BATCH,
+                 sq=LONG_PROMPT)
+    torch.cuda.empty_cache()
+    dt = getattr(torch, dtype_name)
+    e = torch.tensor([], dtype=dt).element_size()
+    rows = [(MAX_BATCH, w) for w in FAMILY_NORM_WIDTHS] + \
+        [(MAX_BATCH, PROMPT_LEN, w) for w in FAMILY_NORM_WIDTHS] + \
+        list(ADMISSION_NORM_ROWS)
+    for rows_shape in rows:
+        width = rows_shape[-1]
+        x, s = rnd(rows_shape, dt), rnd((width,), dt, 0.1)
+        w = 1.0 + s
+        n = x.numel()
+        check("rmsnorm", dtype_name, rows_shape,
+              lambda: rms.rmsnorm(x, s), lambda: rms.rmsnorm_ref(x, s),
+              lambda: F.rms_norm(x, (width,), w, 1e-6),
+              (2 * n + width) * e, 4 * n, False)
+
+
+#: Compiled `flex_attention`, made once (None until the first softcapped
+#: row; False where it does not compile).
+_FLEX = {}
+
+
+def flex_library(torch, qt, kt, vt, scale, softcap, window, starts, shape):
+    """The library call of a softcapped prefill row: `flex_attention`
+    (compiled) with `softcap * tanh(s / softcap)` as its score_mod and the
+    causal window and left pads as its block mask, on [B, H, S, D] views.
+    Returns None, and says why, where it does not compile here."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        if "fn" not in _FLEX:
+            _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+        fn = _FLEX["fn"]
+
+        def score_mod(score, b, h, qi, ki):
+            return softcap * torch.tanh(score / softcap)
+
+        def mask_mod(b, h, qi, ki):
+            m = (ki <= qi) & (qi - ki < window)
+            if starts is not None:
+                m = m & (ki >= starts[b])
+            return m
+        bq, _, sq, _ = qt.shape
+        mask = create_block_mask(mask_mod, bq, None, sq, kt.shape[2],
+                                 device=qt.device)
+
+        def library():
+            return fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                      scale=scale, enable_gqa=True)
+        t0 = time.monotonic()
+        library()
+        torch.cuda.synchronize()
+        say(f"  (flash_attention {shape}: library call flex_attention with "
+            f"a tanh score_mod, compiled in {time.monotonic() - t0:.2f} s)")
+        return library
+    except Exception as e:      # the library call alone; the kernel is held
+        say(f"  (flash_attention {shape}: library_ms null: flex_attention "
+            f"did not compile here: {type(e).__name__}: {str(e)[:160]})")
+        return None
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: flash vs naive at model level, fp32
 # ---------------------------------------------------------------------------
 
 def _run_narrow(torch, rt, cfg, params, toks, mask, feed, steps, device,
-                max_len=None):
+                max_len=None, with_cache=False):
     """Prefill + `steps` decode steps on `device` into a cache built for
     `max_len` (default: the prompt + 16); decode feeds `feed[i]` when
     given, else appends the greedy token to `feed`.  Logits [steps+1, B, V]
-    on the CPU."""
+    on the CPU, and the final cache too `with_cache`."""
     b, plen = toks.shape
     max_len = max_len or plen + 16
     dmask = torch.ones((b, max_len), dtype=torch.bool, device=device)
@@ -759,7 +908,8 @@ def _run_narrow(torch, rt, cfg, params, toks, mask, feed, steps, device,
         out, cache = bundle.decode_step(params, feed[i].to(device), cache,
                                         plen + i, attn_mask=dmask)
         seq.append(out)
-    return torch.stack(seq).cpu()
+    logits = torch.stack(seq).cpu()
+    return (logits, cache) if with_cache else logits
 
 
 def model_check(torch, rt):
@@ -905,11 +1055,174 @@ def narrow_configs(torch, rt):
     }
 
 
+def family_narrow_configs(torch, rt):
+    """Phase 3's narrow fp32 transformer-family models, by label, each at
+    head dims the kernels take: qwen2 (q/k/v biases, 12/2 heads x 128, a
+    decode group of 6), starcoder2 (LayerNorm, dense GELU MLP, biases,
+    18/2 x 64, a group of 9), gemma2 (4 layers local/global, window 8 in
+    a 64-slot cache so its local layers ring, softcaps 50 and 30,
+    post-norms, the sqrt(d) embedding scale and a query scale), qwen2 with
+    the int8 cache, phi-3 (4/4 heads x 96, 8 prefix embeddings) and
+    mixtral-smoke's shape (4 experts top-2 at capacity factor 8 over ring
+    local layers of window 8)."""
+    tc = rt.transformer.TransformerConfig
+    f32 = torch.float32
+    qwen2 = tc(name="qwen2-narrow", n_layers=2, d_model=256, n_heads=12,
+               n_kv_heads=2, head_dim=128, d_ff=512, vocab_size=1024,
+               qkv_bias=True, rope_theta=1000000.0, dtype=f32)
+    return {
+        "qwen2": qwen2,
+        "starcoder2": tc(
+            name="starcoder2-narrow", n_layers=2, d_model=256, n_heads=18,
+            n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=1024,
+            norm="layernorm", mlp_kind="dense", act="gelu_tanh",
+            use_bias=True, dtype=f32),
+        "gemma2": tc(
+            name="gemma2-narrow", n_layers=4, d_model=256, n_heads=8,
+            n_kv_heads=4, head_dim=128, d_ff=512, vocab_size=1024,
+            act="gelu_tanh", attn_softcap=50.0, final_softcap=30.0,
+            query_scale=(256 / 8) ** -0.5, embed_scale=True, post_norms=True,
+            sliding_window=8, layer_pattern=("local", "global"), dtype=f32),
+        "qwen2-int8": rt.dataclasses.replace(qwen2, name="qwen2-int8-narrow",
+                                             kv_cache_dtype="int8"),
+        "phi3": tc(name="phi3-narrow", n_layers=2, d_model=256, n_heads=4,
+                   n_kv_heads=4, head_dim=96, d_ff=512, vocab_size=1024,
+                   num_prefix_embeddings=8, dtype=f32),
+        "mixtral": tc(
+            name="mixtral-narrow", n_layers=2, d_model=256, n_heads=4,
+            n_kv_heads=2, head_dim=64, d_ff=256, vocab_size=1024,
+            sliding_window=8, layer_pattern=("local",),
+            moe=rt.MoEConfig(n_experts=4, top_k=2, d_ff=256,
+                             capacity_factor=8.0),
+            tie_embeddings=False, dtype=f32),
+    }
+
+
+#: Leaves of the family the reference initialises to zero (biases, norm
+#: scales, LayerNorm biases), given noise in the narrow checks so each
+#: counts.
+_FAMILY_NOISE = {"bq": 0.3, "bk": 0.3, "bv": 0.3, "bo": 0.1, "b_in": 0.1,
+                 "b_out": 0.1, "scale": 0.1, "bias": 0.1}
+
+
+def _run_family(torch, rt, cfg, params, toks, mask, prefix, feed, steps,
+                device, max_len=64):
+    """`_run_narrow` with a prefix of embeddings (positions [0, P), the
+    prompt after them); prompts with a prefix carry no pads.  Returns the
+    logits and the final cache."""
+    if prefix is None:
+        return _run_narrow(torch, rt, cfg, params, toks, mask, feed, steps,
+                           device, max_len, with_cache=True)
+    b, plen = toks.shape
+    p = prefix.shape[1]
+    bundle = rt.bundle_for(cfg)
+    cache = bundle.init_cache(b, max_len, device)
+    out, cache = bundle.prefill(params, toks.to(device), cache,
+                                prefix_embeddings=prefix.to(device))
+    seq = [out]
+    for i in range(steps):
+        if len(feed) <= i:
+            feed.append(torch.argmax(seq[-1], dim=-1).cpu())
+        out, cache = bundle.decode_step(params, feed[i].to(device), cache,
+                                        p + plen + i)
+        seq.append(out)
+    return torch.stack(seq).cpu(), cache
+
+
+def family_model_check(torch, rt):
+    """The transformer family, narrow and fp32: flash (kernels) vs naive on
+    the card and flash on the card vs on the CPU (plain versions), within
+    1e-4, over a left-padded 40-token prefill (it rolls the 8-slot rings)
+    and 8 decode steps (they wrap them); phi-3 with 8 prefix embeddings
+    over unpadded prompts.  For the int8 cache, the card's codes against
+    the CPU's too: within one step (a code may sit one step off where a
+    key lands on a rounding boundary and the two sum its projection in
+    another order), the scales within 1e-5."""
+    import dataclasses
+    from repro_torch.models.frontends import VisionStub
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, plen, steps = 4, 40, 8
+    for label, base in family_narrow_configs(torch, rt).items():
+        params = narrow_params(torch, rt, label, base)
+        rng = torch.Generator().manual_seed(1)
+        toks = torch.randint(1, base.vocab_size, (b, plen), generator=rng)
+        prefix = None
+        if base.num_prefix_embeddings:
+            pads = torch.zeros(b, dtype=torch.long)
+            prefix = VisionStub(base.num_prefix_embeddings, base.d_model) \
+                .synth(torch.Generator().manual_seed(2), b, torch.float32)
+        else:
+            pads = torch.tensor([0, 3, 9, 30])
+        mask = torch.arange(plen)[None] >= pads[:, None]
+        toks = torch.where(mask, toks, torch.zeros_like(toks))
+        feed, logits = [], {}
+        for impl in ("naive", "flash"):
+            cfg = dataclasses.replace(base, attn_impl=impl)
+            logits[impl], cache = _run_family(torch, rt, cfg, params, toks,
+                                              mask, prefix, feed, steps,
+                                              "cuda")
+        on_cpu, cpu_cache = _run_family(torch, rt, cfg,
+                                        _tree_to(params, "cpu"), toks, mask,
+                                        prefix, feed, steps, "cpu")
+        geo = (f"{base.n_layers}L {base.layer_pattern}, d{base.d_model}, "
+               f"{base.n_heads}H/{base.n_kv_heads}KV x {base.head_dim}, "
+               f"norm {base.norm}, mlp {base.mlp_kind}, kv "
+               f"{base.kv_cache_dtype}")
+        if base.sliding_window:
+            geo += f", window {base.sliding_window} (ring)"
+        if prefix is not None:
+            geo += f", prefix {prefix.shape[1]}"
+        for what, a, ref in (("flash-vs-naive on the card", logits["flash"],
+                              logits["naive"]),
+                             ("flash on the card (kernels) vs on the CPU "
+                              "(plain versions)", logits["flash"], on_cpu)):
+            diff = (a - ref).abs().max().item()
+            finite = bool(torch.isfinite(a).all().item())
+            say(f"model fp32 {label} narrow ({geo}) {what}, prefill {plen} "
+                f"+ {steps} decode: max_abs_diff={diff:.3e} tol=1e-4 "
+                f"finite={finite}")
+            if not finite or not diff <= 1e-4:
+                fail(f"{label}: {what}: logits differ by {diff}")
+        if base.kv_cache_dtype == "int8":
+            int8_cache_check(torch, label, cache, cpu_cache)
+
+
+def int8_cache_check(torch, label, card, cpu):
+    """The int8 cache the card wrote (flash) against the CPU's: the codes
+    within one step, the fp32 scales within 1e-5 of the CPU's plus 1e-7
+    (tests/test_torch_cuda.py's bound)."""
+    for group, leaves in card.items():
+        for name, leaf in leaves.items():
+            ref = cpu[group][name]
+            if leaf.dtype != ref.dtype or leaf.shape != ref.shape:
+                fail(f"{label}: cache {group}/{name} is {leaf.dtype} "
+                     f"{tuple(leaf.shape)} on the card, {ref.dtype} "
+                     f"{tuple(ref.shape)} on the CPU")
+            got = leaf.cpu()
+            if leaf.dtype == torch.int8:
+                steps = (got.int() - ref.int()).abs()
+                ok = int(steps.max()) <= 1
+                what = (f"max_steps={int(steps.max())} tol=1, one step off "
+                        f"{int((steps > 0).sum())} of {steps.numel()}")
+            else:
+                diff = (got - ref).abs()
+                ok = bool((diff <= 1e-7 + 1e-5 * ref.abs()).all())
+                what = (f"max_abs_diff={float(diff.max()):.3e} "
+                        f"tol=1e-5 x |cpu| + 1e-7")
+            say(f"model fp32 {label} narrow int8 cache {group}/{name} card "
+                f"vs CPU: {what}")
+            if not ok:
+                fail(f"{label}: cache {group}/{name}: {what}")
+
+
 def narrow_params(torch, rt, label, cfg):
-    """Seeded weights of a narrow model on the card; rwkv6's and
-    recurrentgemma's leaves that start at zero or a constant get noise."""
+    """Seeded weights of a narrow model on the card; rwkv6's,
+    recurrentgemma's and the transformer family's leaves that start at
+    zero or a constant get noise."""
     params = rt.bundle_for(cfg).init_params(0, "cuda")
-    noise = {"rwkv6": _RWKV6_NOISE, "recurrentgemma": _RGLRU_NOISE}.get(label)
+    noise = {"rwkv6": _RWKV6_NOISE, "recurrentgemma": _RGLRU_NOISE,
+             "llama": None, "olmoe": None}.get(label, _FAMILY_NOISE)
     if noise is not None:
         gen = torch.Generator(device="cuda").manual_seed(2)
         _add_noise(torch, params, gen, noise)
@@ -932,6 +1245,13 @@ NARROW_WORKLOAD = ((5, 12, 0.0), (9, 4, 0.0), (13, 6, 0.0), (3, 5, 2.5),
                    (20, 3, 3.0), (5, 7, 4.0))
 
 
+#: Phase 3's continuous check: its narrow models, by label, and the
+#: prompt bucket of each (gemma2's 4, below its 8-slot ring, so the 3-token
+#: prompt is admitted by the short-prompt roll).
+CONTINUOUS_NARROW = {"llama": 8, "olmoe": 8, "rwkv6": 8, "recurrentgemma": 8,
+                     "gemma2": 4, "qwen2-int8": 8}
+
+
 def continuous_narrow_check(torch, rt):
     """Continuous batching on the narrow fp32 models: the same staggered
     workload (3 slots, chunks of 4, `step_time_s=1`, an EOS, admissions
@@ -940,7 +1260,10 @@ def continuous_narrow_check(torch, rt):
     calls and records."""
     import dataclasses
     import numpy as np
-    for label, cfg in narrow_configs(torch, rt).items():
+    narrow = dict(narrow_configs(torch, rt), **family_narrow_configs(torch,
+                                                                     rt))
+    for label, bucket in CONTINUOUS_NARROW.items():
+        cfg = narrow[label]
         if hasattr(cfg, "attn_impl"):
             cfg = dataclasses.replace(cfg, attn_impl="flash")
         bundle = rt.bundle_for(cfg)
@@ -951,7 +1274,7 @@ def continuous_narrow_check(torch, rt):
 
         def serve(device, p, eos_id):
             engine = rt.InferenceEngine(bundle, p, max_batch=3,
-                                        max_seq_len=64, prompt_bucket=8,
+                                        max_seq_len=64, prompt_bucket=bucket,
                                         device=device)
             reqs = [rt.EngineRequest(rid=i, prompt=q, max_new_tokens=m,
                                      arrival_s=a) for i, (q, (_, m, a))
@@ -969,7 +1292,8 @@ def continuous_narrow_check(torch, rt):
             np.array_equal(on_card[k], on_cpu[k]) for k in on_cpu)
         admitted = len(mid_decode_admissions(st_card.records))
         say(f"continuous fp32 {label} narrow on the card (graph, kernels) "
-            f"vs on the CPU (plain versions), 3 slots, chunk 4, "
+            f"vs on the CPU (plain versions), 3 slots, chunk 4, bucket "
+            f"{bucket}, "
             f"{len(prompts)} requests, eos={eos}: tokens_equal={same} "
             f"records_equal={recs[0] == recs[1]} decode_steps="
             f"{st_card.decode_steps}/{st_cpu.decode_steps} prefill_calls="
@@ -1017,17 +1341,21 @@ def _tree_to(tree, device):
 # Phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def weight_read_floor_ms(family, cfg, batch):
+def weight_read_floor_ms(family, cfg, batch, kv_slots=PROMPT_LEN + NEW_TOKENS,
+                         kv_bytes=2):
     """Least time of one decode step at `batch`: the bytes it must move
-    over 3.35 TB/s.  Transformers: every weight the step reads (attention,
-    the router, the LM head, and each expert whose capacity buffer the
-    step computes -- all of them, since decode capacity is at least top_k
-    rows an expert).  rwkv6: every weight but the embedding table (its B
-    rows only) and the recurrent state (WKV fp32, token shifts bf16) read
-    and written once.  recurrentgemma: every weight (the tied unembedding
-    reads the whole table), the attention caches read once, and the
-    recurrent state (`lru_h` fp32, `conv_tail` bf16) read and written
-    once."""
+    over 3.35 TB/s.  Transformers: every weight the step reads (attention
+    with its biases, the FFN -- gated 3 d d_ff, dense 2 d d_ff, with their
+    biases -- the norms, the router, the LM head, and each expert whose
+    capacity buffer the step computes -- all of them, since decode
+    capacity is at least top_k rows an expert), and the KV cache's
+    `kv_slots` valid keys a row a layer, read once at `kv_bytes` a value
+    (an int8 cache: 1, plus its fp32 scale a (token, head)).  rwkv6:
+    every weight but the embedding table (its B rows only) and the
+    recurrent state (WKV fp32, token shifts bf16) read and written once.
+    recurrentgemma: every weight (the tied unembedding reads the whole
+    table), the attention caches read once, and the recurrent state
+    (`lru_h` fp32, `conv_tail` bf16) read and written once."""
     d, e = cfg.d_model, 2   # bf16
     if family == "rglru":
         n_rec = cfg.n_recurrent
@@ -1043,14 +1371,24 @@ def weight_read_floor_ms(family, cfg, batch):
             cfg.n_heads * cfg.head_dim ** 2 * 4 + 2 * d * e)
         return ((cfg.n_params - tables) * e + head + 2 * state) \
             / HBM_BYTES_PER_S * 1e3
-    attn = 2 * d * cfg.n_heads * cfg.head_dim + \
-        2 * d * cfg.n_kv_heads * cfg.head_dim
-    if cfg.moe is None:
-        ffn = 3 * d * cfg.d_ff * e
-    else:
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = 2 * d * h * hd + 2 * d * kvh * hd
+    if cfg.use_bias or cfg.qkv_bias:
+        attn += (h + 2 * kvh) * hd + (d if not cfg.qkv_bias else 0)
+    f = cfg.d_ff
+    if cfg.moe is not None:
         m = cfg.moe
         ffn = 3 * m.n_experts * d * m.d_ff * e + d * m.n_experts * 4
-    return (cfg.n_layers * (attn * e + ffn) + head) / HBM_BYTES_PER_S * 1e3
+    elif cfg.mlp_kind == "gated":
+        ffn = (3 * d * f + (2 * f + d if cfg.use_bias else 0)) * e
+    else:
+        ffn = (2 * d * f + (f + d if cfg.use_bias else 0)) * e
+    per_norm = d * (2 if cfg.norm == "layernorm" else 1)
+    norms = (2 + 2 * cfg.post_norms) * per_norm + 2 * hd * cfg.qk_norm
+    kv = batch * kv_slots * kvh * (hd * kv_bytes + (
+        4 if kv_bytes == 1 else 0)) * 2
+    return (cfg.n_layers * ((attn + norms) * e + ffn + kv) + head
+            + per_norm * e) / HBM_BYTES_PER_S * 1e3
 
 
 def describe(family, cfg):
@@ -1067,16 +1405,28 @@ def describe(family, cfg):
                 f"{cfg.n_heads}H x {cfg.head_dim} (attention-free) "
                 f"d_ff={cfg.d_ff} chunk={cfg.chunk} "
                 f"tied={cfg.tie_embeddings}")
-    ffn = (f"d_ff={cfg.d_ff}" if cfg.moe is None else
+    ffn = (f"d_ff={cfg.d_ff} ({cfg.mlp_kind} {cfg.act})"
+           if cfg.moe is None else
            f"moe={cfg.moe.n_experts}x top-{cfg.moe.top_k} "
-           f"d_ff={cfg.moe.d_ff} qk_norm={cfg.qk_norm} "
-           f"tied={cfg.tie_embeddings}")
+           f"d_ff={cfg.moe.d_ff} qk_norm={cfg.qk_norm}")
+    extra = "".join(f" {k}={v}" for k, v in (
+        ("qkv_bias", cfg.qkv_bias), ("use_bias", cfg.use_bias),
+        ("attn_softcap", cfg.attn_softcap),
+        ("final_softcap", cfg.final_softcap),
+        ("query_scale", cfg.query_scale), ("embed_scale", cfg.embed_scale),
+        ("post_norms", cfg.post_norms),
+        ("sliding_window", cfg.sliding_window),
+        ("kv_cache_dtype", cfg.kv_cache_dtype)) if v not in (
+            False, 0, 0.0, None, "native"))
+    if cfg.layer_pattern != ("global",):
+        extra += f" layer_pattern={cfg.layer_pattern}"
     return (f"{cfg.name} {cfg.n_layers}L d_model={cfg.d_model} "
             f"{cfg.n_heads}H/{cfg.n_kv_heads}KV x {cfg.head_dim} {ffn} "
+            f"norm={cfg.norm} tied={cfg.tie_embeddings}{extra} "
             f"attn_impl={cfg.attn_impl}")
 
 
-def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
+def serve_full_width(torch, rt, ops, arch, prompt_len, bucket, rounds):
     import dataclasses
     import numpy as np
     cfg = rt.configs.get(arch)
@@ -1130,7 +1480,7 @@ def serve_full_width(torch, rt, ops, arch, prompt_len, bucket):
         cm = cm.with_reference(ref_obs.energy, ref_obs.latency)
         policy = rt.make_policy("camel", prior_mu=1.0, prior_sigma=0.1)
         return ref_obs, rt.Controller(space, policy, cm, seed=0).run(
-            env, ROUNDS)
+            env, rounds)
 
     counts, (ref_obs, res) = counted_run(torch, ops, engine, drive)
 
@@ -1212,8 +1562,18 @@ def expected_launches(family, cfg, n_generate, prompt_len, steps=None):
                        "flash_attention": (n_layers - n_rec) * n_generate,
                        "rmsnorm": (2 * n_layers + 1) * passes})
     else:
-        norms = 4 * n_layers + 1 if cfg.qk_norm else 2 * n_layers + 1
-        counts.update({"decode_attention": n_layers * steps,
+        # Decode attention runs on plain causal layers only: no window, no
+        # softcap (gemma2 and mixtral decode naive, as in the reference).
+        plain = sum(1 for local in cfg.is_local
+                    if not (local and cfg.sliding_window)
+                    and not cfg.attn_softcap)
+        # RMSNorms a layer: the two pre-norms, gemma2's two post-norms and
+        # olmoe's q/k norms; the final norm once a pass.  starcoder2's
+        # LayerNorm has no kernel.
+        norms = 0 if cfg.norm != "rmsnorm" else \
+            (2 + 2 * cfg.post_norms) * n_layers + 1
+        norms += 2 * n_layers * cfg.qk_norm
+        counts.update({"decode_attention": plain * steps,
                        "flash_attention": n_layers * n_generate,
                        "moe_gemm": 3 * n_layers * passes
                        if cfg.moe is not None else 0,
@@ -1385,6 +1745,77 @@ def long_cache_generate(torch, rt, ops, engine, cfg):
         fail(f"long cache: launch counts {counts} != expected {expected}")
 
 
+def int8_long_cache(torch, rt, ops, engine, cfg):
+    """Phase 6's int8 cache: the full-width qwen2-1.5b (the params phase 4f
+    made) over a LONG_SEQ_LEN-slot cache at LONG_BATCH, prompts of
+    LONG_PROMPT tokens, with the int8 cache and with the native one on the
+    same params.  Prefill and decode step of each, in turns native, int8,
+    int8, native; the int8 graph's tokens against its eager loop's; the
+    int8 cache's leaves checked to be int8 codes with fp32 scales; and the
+    kernel executions of one int8 generate: decode attention once a plain
+    layer a step over the dequantized cache (split, with the combine), as
+    the reference runs it."""
+    import dataclasses
+    import numpy as np
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
+               for _ in range(LONG_BATCH)]
+    engines, toks = {}, {}
+    for kv, impl in (("native", "fused"), ("int8", "fused"),
+                     ("int8", "loop")):
+        bundle = rt.bundle_for(dataclasses.replace(cfg, kv_cache_dtype=kv))
+        eng = rt.InferenceEngine(bundle, engine.params, max_batch=LONG_BATCH,
+                                 max_seq_len=LONG_SEQ_LEN,
+                                 prompt_bucket=PROMPT_LEN, decode_impl=impl,
+                                 device="cuda")
+        toks[kv, impl], _ = eng.generate(prompts, NEW_TOKENS)   # warm-up
+        engines[kv, impl] = eng
+    leaves = engines["int8", "fused"]._cache_pool[LONG_BATCH]["global"]
+    kinds = {k: (str(t.dtype), tuple(t.shape)) for k, t in leaves.items()}
+    if kinds.get("k", ("",))[0] != "torch.int8" or \
+            kinds.get("k_scale", ("",))[0] != "torch.float32":
+        fail(f"int8 cache: the pooled cache holds {kinds}, not int8 codes "
+             "and fp32 scales")
+    if not np.array_equal(toks["int8", "fused"], toks["int8", "loop"]):
+        fail("int8 cache: graph-replayed tokens differ from the eager loop's")
+    agree = float((toks["int8", "fused"] == toks["native", "fused"]).mean())
+    times = {"native": [], "int8": []}
+    for kv in ("native", "int8", "int8", "native"):
+        _, st = engines[kv, "fused"].generate(prompts, NEW_TOKENS)
+        times[kv].append((st.prefill_s, 1e3 * st.decode_s / NEW_TOKENS))
+    step = {kv: statistics.mean(t[1] for t in ts) for kv, ts in times.items()}
+    pre = {kv: statistics.mean(t[0] for t in ts) for kv, ts in times.items()}
+    runs = {kv: [(round(p, 6), round(d, 4)) for p, d in ts]
+            for kv, ts in times.items()}
+    floors = {kv: weight_read_floor_ms("transformer", cfg, LONG_BATCH,
+                                       LONG_PROMPT + NEW_TOKENS, nb)
+              for kv, nb in (("native", 2), ("int8", 1))}
+    say(f"int8 cache {cfg.name}: batch {LONG_BATCH}, prompts of {LONG_PROMPT} "
+        f"tokens, cache {LONG_SEQ_LEN} slots, leaves {kinds}: "
+        f"decode_step_ms native={step['native']:.4f} int8={step['int8']:.4f} "
+        f"int8_over_native={step['int8'] / step['native']:.4f} prefill_s "
+        f"native={pre['native']:.6f} int8={pre['int8']:.6f} decode_floor_ms "
+        f"native={floors['native']:.4f} int8={floors['int8']:.4f} "
+        f"runs={runs} graph_equals_loop=True "
+        f"tokens_equal_to_native_share={agree:.4f}")
+    int8 = engines["int8", "fused"]
+    counts, _ = counted_run(torch, ops, int8, lambda: int8.generate(
+        prompts, NEW_TOKENS))
+    expected = expected_launches("transformer", cfg, 1, LONG_PROMPT)
+    dec = ops["decode_attention"]
+    n_splits, _ = dec.split_plan(LONG_BATCH, cfg.n_kv_heads, LONG_SEQ_LEN,
+                                 dec.sm_count(torch.device("cuda", 0)))
+    if n_splits > 1:
+        expected["decode_attention_combine"] = cfg.n_layers * NEW_TOKENS
+    say(f"launch counts int8 cache {cfg.name} over 1 generate call "
+        f"({NEW_TOKENS} decode steps, {n_splits} KV splits): {counts} "
+        f"expected {expected}")
+    if counts != expected:
+        fail(f"int8 cache: launch counts {counts} != expected {expected}")
+    del engines, int8
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: continuous batching at full width
 # ---------------------------------------------------------------------------
@@ -1416,15 +1847,16 @@ def poisson_workload(rt, cfg, prompt_len, n):
 
 
 def continuous_full_width(torch, rt, ops, engine, cfg, prompts, prompt_len,
-                          n_requests):
+                          n_requests, poisson=True):
     """Phase 7 on one path's engine (n_slots MAX_BATCH, the graph phase 4
     captured at that batch): (a) every request at t=0 with equal budgets,
     streams equal to `generate`'s at chunk NEW_TOKENS and 3; (b) E13's
     Poisson workload through `generate_continuous` and through static
-    groups of MAX_BATCH in arrival order, `step_time_s=1`; (c) the kernel
-    executions of all of it, counted as in phase 5, equal to its prefills
-    (seeds and one-row admissions alike) times a prefill's launches plus
-    its decode steps times a step's.  Returns the counts."""
+    groups of MAX_BATCH in arrival order, `step_time_s=1` (left out with
+    `poisson` False); (c) the kernel executions of all of it, counted as
+    in phase 5, equal to its prefills (seeds and one-row admissions alike)
+    times a prefill's launches plus its decode steps times a step's.
+    Returns the counts."""
     import numpy as np
     arch, family = cfg.name, engine.bundle.family
     done = {"prefills": 0, "steps": 0}
@@ -1452,6 +1884,8 @@ def continuous_full_width(torch, rt, ops, engine, cfg, prompts, prompt_len,
                     (NEW_TOKENS, 1):
                 fail(f"{arch}: continuous at chunk {chunk} is not the "
                      "static schedule")
+        if not poisson:
+            return
         reqs = poisson_workload(rt, cfg, prompt_len, n_requests)
         admits = sum(n for k, n in engine.calls.items() if k[0] == "admit")
         t0 = time.monotonic()
@@ -1494,6 +1928,8 @@ def continuous_full_width(torch, rt, ops, engine, cfg, prompts, prompt_len,
     if counts != expected:
         fail(f"{arch}: continuous launch counts {counts} != expected "
              f"{expected}")
+    if not poisson:
+        return counts
     st = out["st"]
     cont_step_ms = 1e3 * st.decode_s / st.decode_steps
     say(f"continuous poisson {arch}: requests={n_requests} rate="
@@ -1700,6 +2136,8 @@ def main() -> None:
     main_rows = kernel_checks(torch, ops)
 
     # Phase 3
+    import dataclasses
+
     import repro_torch.configs as configs
     from repro_torch.core.baselines import make_policy
     from repro_torch.core.controller import Controller
@@ -1714,9 +2152,9 @@ def main() -> None:
     from repro_torch.serving.requests import ArrivalProcess
     from repro_torch.serving.scheduler import EngineRequest
     rt = argparse.Namespace(
-        configs=configs, make_policy=make_policy, Controller=Controller,
-        CostModel=CostModel, transformer=transformer, rwkv6=rwkv6,
-        rglru=rglru, bundle_for=bundle_for,
+        dataclasses=dataclasses, configs=configs, make_policy=make_policy,
+        Controller=Controller, CostModel=CostModel, transformer=transformer,
+        rwkv6=rwkv6, rglru=rglru, bundle_for=bundle_for,
         make_space=make_space, energy=energy, MoEConfig=MoEConfig,
         EngineEnvironment=EngineEnvironment, InferenceEngine=InferenceEngine,
         EngineRequest=EngineRequest, ArrivalProcess=ArrivalProcess,
@@ -1724,14 +2162,16 @@ def main() -> None:
     model_check(torch, rt)
     rwkv6_check(torch, rt)
     rglru_model_check(torch, rt)
+    family_model_check(torch, rt)
     continuous_narrow_check(torch, rt)
     limit_w = float(smi.split(",")[-1].split()[0])
 
     # Phases 4 and 5, once per main path
+    import gc
     totals = dict.fromkeys(ops, 0)
-    for arch, prompt_len, bucket in PATHS:
+    for arch, prompt_len, bucket, rounds, continuous in PATHS:
         counts, n_generate, cfg, engine, prompts = serve_full_width(
-            torch, rt, ops, arch, prompt_len, bucket)
+            torch, rt, ops, arch, prompt_len, bucket, rounds)
         expected = expected_launches(engine.bundle.family, cfg, n_generate,
                                      prompt_len)
         say(f"launch counts {arch} over {n_generate} generate calls "
@@ -1743,17 +2183,25 @@ def main() -> None:
             totals[name] += counts[name]
         graph_vs_loop(rt, engine, prompts, engine.bundle.family, cfg)
         profile_generate(torch, engine, prompts)
+        # Phase 6
         if arch == "llama3.2-1b":
             long_cache_generate(torch, rt, ops, engine, cfg)
+        if arch == "qwen2-1.5b":
+            int8_long_cache(torch, rt, ops, engine, cfg)
         # Phases 7 and 8
-        counts = continuous_full_width(
-            torch, rt, ops, engine, cfg, prompts, prompt_len,
-            CONT_GROUPS.get(arch, 2) * MAX_BATCH)
-        for name in totals:
-            totals[name] += counts[name]
-        admission_prefill(torch, engine, cfg, prompt_len)
-        measured_energy(torch, rt, engine, cfg, prompt_len, prompts, limit_w)
-        del engine
+        if continuous != "none":
+            counts = continuous_full_width(
+                torch, rt, ops, engine, cfg, prompts, prompt_len,
+                CONT_GROUPS.get(arch, 2) * MAX_BATCH,
+                poisson=continuous == "all")
+            for name in totals:
+                totals[name] += counts[name]
+        if continuous == "all":
+            admission_prefill(torch, engine, cfg, prompt_len)
+            measured_energy(torch, rt, engine, cfg, prompt_len, prompts,
+                            limit_w)
+        del engine, prompts
+        gc.collect()
         torch.cuda.empty_cache()
 
     say(f"chip_smoke total_s={time.monotonic() - t_start:.1f}")

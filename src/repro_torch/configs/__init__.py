@@ -1,5 +1,5 @@
-"""Architecture configs of the port (llama3.2-1b, olmoe-1b-7b, rwkv6-3b and
-recurrentgemma-9b of `repro.configs`).
+"""Architecture configs of the port: those of `repro.configs` but
+seamless-m4t-large-v2 (an encoder-decoder the port has no family for).
 
 `get(name)` returns the full config; `get_smoke(name)` the reduced
 same-family config for CPU tests and the default engine environment."""
@@ -14,6 +14,13 @@ ALIASES: Dict[str, str] = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "rwkv6-3b": "rwkv6_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen2-1.5b": "qwen2_1p5b",
+    "qwen2.5-3b": "qwen25_3b",
+    "smollm-360m": "smollm_360m",
+    "starcoder2-7b": "starcoder2_7b",
+    "gemma2-27b": "gemma2_27b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
 
 

@@ -27,10 +27,14 @@ Options:
 Runs on CUDA unless `--device cpu` is given.  The reference's
 search/validate/tpu/fleet modes and `--faults` are not ported yet.
 
-Usage (from the repository root; `--arch` is llama3.2-1b, olmoe-1b-7b,
-rwkv6-3b or recurrentgemma-9b):
+Usage (from the repository root; `--arch` is qwen2-1.5b (the default, as
+in the reference), qwen2.5-3b, llama3.2-1b, smollm-360m, starcoder2-7b,
+gemma2-27b, phi-3-vision-4.2b, mixtral-8x22b, olmoe-1b-7b, rwkv6-3b or
+recurrentgemma-9b; the engine serves the arch's smoke config):
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
-        --arch llama3.2-1b --rounds 8
+        --rounds 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+        --arch qwen2.5-3b --sensor nvml --rounds 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --scheduler continuous --sensor nvml --rounds 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
@@ -73,7 +77,7 @@ def engine_mode(arch: str, rounds: int, alpha: float, seed: int,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["engine"], default="engine")
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--rounds", type=int, default=49)
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)

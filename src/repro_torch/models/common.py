@@ -1,17 +1,20 @@
-"""Shared model components of the port (the parts of `repro.models.common`
-that llama3.2-1b, olmoe-1b-7b, rwkv6-3b and recurrentgemma-9b reach):
+"""Shared model components of the port (`repro.models.common` without its
+sinusoidal table and `self_attention`, which no served path reaches):
 RMSNorm, LayerNorm, rotary embeddings, GQA attention with optional qk-norm,
-the native KV cache as a plain or a ring (sliding-window) buffer, cached
-decode attention, prefill into the cache, the gated MLP (SwiGLU and GeGLU),
-tied or untied embeddings with the optional sqrt(d) scale, the loss, and
-the conversion of a JAX params tree.
+q/k/v and output biases and a logit softcap, the native or int8 KV cache as
+a plain or a ring (sliding-window) buffer, cached decode attention, prefill
+into the cache, the gated MLP (SwiGLU and GeGLU) and the dense one, tied or
+untied embeddings with the optional sqrt(d) scale and final softcap, the
+loss, and the conversion of a JAX params tree.
 
 Parameters are plain nested dicts of tensors with the reference's key
 names and its `[in, out]` weight layout (``x @ w``).  Dtype policy: params
 and activations in `cfg.dtype` (default bf16), softmax and logits in fp32.
 
 KV caches are written in place (`index_copy_` at slot `pos`) instead of
-returned as fresh copies, which saves a full cache copy per layer.  A
+returned as fresh copies, which saves a full cache copy per layer.  An int8
+cache writes its codes and per-(token, head) scales in place the same way,
+and a step reads it dequantized whole, as the reference does.  A
 pooled cache therefore carries a previous call's entries; that is safe
 because every position a call reads was written by the same call or is
 masked (positions past `pos`, left-pad slots before `kv_start`, ring
@@ -91,6 +94,15 @@ def layernorm(params: Params, x: Tensor, eps: float = 1e-5) -> Tensor:
     return out.to(x.dtype)
 
 
+def make_norm(kind: str) -> Tuple[Callable, Callable]:
+    """(init, apply) of the norm `kind`: "rmsnorm" or "layernorm"."""
+    if kind == "rmsnorm":
+        return rmsnorm_init, rmsnorm
+    if kind == "layernorm":
+        return layernorm_init, layernorm
+    raise ValueError(f"unknown norm {kind!r}")
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (split halves, as the reference)
 # ---------------------------------------------------------------------------
@@ -126,7 +138,9 @@ class AttnSpec:
     n_heads: int
     n_kv_heads: int
     head_dim: int
-    logit_softcap: float = 0.0
+    use_bias: bool = False               # q/k/v and output bias (starcoder2)
+    qkv_bias_only: bool = False          # q/k/v bias alone (qwen2)
+    logit_softcap: float = 0.0           # gemma2: 50
     query_scale: Optional[float] = None  # default 1/sqrt(head_dim)
     rope_theta: float = 10000.0
     use_rope: bool = True
@@ -143,6 +157,12 @@ def attn_init(gen: torch.Generator, spec: AttnSpec, dtype, device
          "wk": dense_init(gen, d, kvh * hd, dtype, device),
          "wv": dense_init(gen, d, kvh * hd, dtype, device),
          "wo": dense_init(gen, h * hd, d, dtype, device)}
+    if spec.use_bias or spec.qkv_bias_only:
+        p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((kvh * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((kvh * hd,), dtype=dtype, device=device)
+        if spec.use_bias and not spec.qkv_bias_only:
+            p["bo"] = torch.zeros((d,), dtype=dtype, device=device)
     if spec.qk_norm:
         p["q_norm"] = rmsnorm_init(hd, dtype, device)
         p["k_norm"] = rmsnorm_init(hd, dtype, device)
@@ -154,9 +174,14 @@ def _project_qkv(params: Params, spec: AttnSpec, x: Tensor,
                  ) -> Tuple[Tensor, Tensor, Tensor]:
     b, s, _ = x.shape
     h, kvh, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    if "bq" in params:
+        # Added after the product, each rounded to x's dtype, as the
+        # reference's einsum then `+ b`.
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
     if spec.qk_norm:
         # Per-head RMSNorm over head_dim, after the projections and before
         # RoPE; [B, S, H, hd] rows go through the RMSNorm kernel.
@@ -191,7 +216,10 @@ def mha_attend(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
 
 
 def attn_out(params: Params, spec: AttnSpec, ctx: Tensor) -> Tensor:
-    return ctx @ params["wo"]
+    out = ctx @ params["wo"]
+    if "bo" in params:
+        out = out + params["bo"]
+    return out
 
 
 def causal_mask(sq: int, sk: int, window: int = 0, device=None) -> Tensor:
@@ -209,10 +237,42 @@ def causal_mask(sq: int, sk: int, window: int = 0, device=None) -> Tensor:
 
 def kv_cache_init(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
                   dtype, device) -> Params:
-    """Per-layer native cache {"k", "v"}: [B, S, KVH, D]."""
+    """Per-layer cache.  Native: {"k", "v"} [B, S, KVH, D] of `dtype`.
+    `dtype=torch.int8`: int8 codes "k", "v" and fp32 per-(token, head)
+    absmax scales "k_scale", "v_scale" [B, S, KVH, 1]."""
     shape = (batch, max_len, n_kv_heads, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        sshape = (batch, max_len, n_kv_heads, 1)
+        cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+    return cache
+
+
+def _quantize_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """[..., D] -> (int8 codes, fp32 absmax scale [..., 1]): the
+    reference's arithmetic step for step (fp32 division, round half to
+    even, scale floored at 1e-8), so the codes are the same bits."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    codes = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _dequantize_kv(codes: Tensor, scale: Tensor, dtype) -> Tensor:
+    return (codes.float() * scale).to(dtype)
+
+
+def _cache_entries(cache: Params, k: Tensor, v: Tensor) -> Params:
+    """What writing k/v [B, S, KVH, D] puts in `cache`'s leaves: k/v cast
+    to the cache's dtype, or for an int8 cache their codes and scales."""
+    if "k_scale" in cache:
+        (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+        return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+    return {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
 
 
 def _pad_valid_at(pad_mask: Tensor, kpos: Tensor) -> Tensor:
@@ -250,9 +310,11 @@ def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
     x's device, as the reference's traced `start_pos + i`).  The new K/V
     are written into the cache in place, at `pos`, or with `ring=True` at
     slot `pos % S` of a ring buffer of S == sliding_window slots (RoPE is
-    applied before the write, so positions stay global).  `pad_mask` ([B,
-    P] bool, True = real) invalidates left-pad prompt slots; positions >=
-    P are always valid.  Returns (attn output [B,1,D], cache).
+    applied before the write, so positions stay global); an int8 cache
+    takes their codes and scales there and is read dequantized.
+    `pad_mask` ([B, P] bool, True = real) invalidates left-pad prompt
+    slots; positions >= P are always valid.  Returns (attn output
+    [B,1,D], cache).
 
     Everything that reads `pos` is device arithmetic: the slot is written
     with `index_copy_` at a one-element device index (indexing with a 0-d
@@ -267,9 +329,14 @@ def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
     pos = as_pos(pos, x.device)
     q, k_new, v_new = _project_qkv(params, spec, x, pos.expand(b, 1))
     slot = (torch.remainder(pos, s_cache) if ring else pos).reshape(1)
-    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
-    k, v = cache["k"], cache["v"]
+    for name, new in _cache_entries(cache, k_new, v_new).items():
+        cache[name].index_copy_(1, slot, new)
+    if "k_scale" in cache:
+        # The reference's int8 read: the whole cache dequantized a step.
+        k = _dequantize_kv(cache["k"], cache["k_scale"], k_new.dtype)
+        v = _dequantize_kv(cache["v"], cache["v_scale"], v_new.dtype)
+    else:
+        k, v = cache["k"], cache["v"]
 
     # The reference's kernel route (`common.py:344-345`).
     if (spec.attn_impl == "flash" and not ring and spec.sliding_window == 0
@@ -314,7 +381,8 @@ def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
     `window` tokens, token g in slot g % window.  A prompt of S >= window
     overwrites the whole ring; a shorter one at an offset is written at 0
     and the row rolled by `pos_offset % window`, which, as in the
-    reference, assumes a fresh (all-zero) cache row."""
+    reference, assumes a fresh (all-zero) cache row.  An int8 cache takes
+    the codes and scales of the same entries."""
     b, s, _ = x.shape
     s_cache = cache["k"].shape[1]
     off = 0 if pos_offset is None else int(pos_offset)
@@ -323,15 +391,16 @@ def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
     if ring and s >= s_cache:
         w = s_cache
         start = (off + s - w) % w
-        for name, new in (("k", k), ("v", v)):
-            cache[name].copy_(torch.roll(new[:, s - w:], start, dims=1))
+        for name, new in _cache_entries(cache, k[:, s - w:],
+                                        v[:, s - w:]).items():
+            cache[name].copy_(torch.roll(new, start, dims=1))
     elif ring and pos_offset is not None:
-        for name, new in (("k", k), ("v", v)):
-            cache[name][:, :s] = new.to(cache[name].dtype)
+        for name, new in _cache_entries(cache, k, v).items():
+            cache[name][:, :s] = new
             cache[name].copy_(torch.roll(cache[name], off % s_cache, dims=1))
     else:
-        cache["k"][:, off:off + s] = k.to(cache["k"].dtype)
-        cache["v"][:, off:off + s] = v.to(cache["v"].dtype)
+        for name, new in _cache_entries(cache, k, v).items():
+            cache[name][:, off:off + s] = new
     if spec.attn_impl == "flash":
         kv_start = None if pad_mask is None else kv_start_of(pad_mask)
         ctx = flash_attention(q, k, v, scale=spec.query_scale, causal=True,
@@ -362,21 +431,55 @@ def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
 # ---------------------------------------------------------------------------
 
 ACTS = {"silu": F.silu,
-        # jax.nn.gelu's default (approximate=True), which GeGLU uses.
+        # jax.nn.gelu's default is the tanh approximation: "gelu" (the
+        # dense MLP's default) and "gelu_tanh" are one function there.
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
         "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
-                   device) -> Params:
-    return {"w_gate": dense_init(gen, d_model, d_ff, dtype, device),
-            "w_up": dense_init(gen, d_model, d_ff, dtype, device),
-            "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
+                   device, use_bias: bool = False) -> Params:
+    p = {"w_gate": dense_init(gen, d_model, d_ff, dtype, device),
+         "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+         "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
+    if use_bias:
+        p["b_gate"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["b_up"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["b_down"] = torch.zeros((d_model,), dtype=dtype, device=device)
+    return p
 
 
 def gated_mlp(params: Params, x: Tensor, act: str = "silu") -> Tensor:
     """SwiGLU (`act="silu"`) or GeGLU (`act="gelu_tanh"`)."""
-    h = ACTS[act](x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    g, u = x @ params["w_gate"], x @ params["w_up"]
+    if "b_gate" in params:
+        g, u = g + params["b_gate"], u + params["b_up"]
+    out = (ACTS[act](g) * u) @ params["w_down"]
+    if "b_down" in params:
+        out = out + params["b_down"]
+    return out
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
+             use_bias: bool = True) -> Params:
+    p = {"w_in": dense_init(gen, d_model, d_ff, dtype, device),
+         "w_out": dense_init(gen, d_ff, d_model, dtype, device)}
+    if use_bias:
+        p["b_in"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["b_out"] = torch.zeros((d_model,), dtype=dtype, device=device)
+    return p
+
+
+def mlp(params: Params, x: Tensor, act: str = "gelu") -> Tensor:
+    """The dense (non-gated) MLP, with biases where params hold them
+    (starcoder2)."""
+    h = x @ params["w_in"]
+    if "b_in" in params:
+        h = h + params["b_in"]
+    out = ACTS[act](h) @ params["w_out"]
+    if "b_out" in params:
+        out = out + params["b_out"]
+    return out
 
 
 def embed(params: Params, tokens: Tensor, scale_by_sqrt_dim: bool = False
@@ -395,11 +498,16 @@ def _sqrt_dim(d: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(math.sqrt(d), dtype=dtype))
 
 
-def unembed(params: Params, x: Tensor, tied: bool = True) -> Tensor:
+def unembed(params: Params, x: Tensor, tied: bool = True,
+            final_softcap: float = 0.0) -> Tensor:
     """Unembedding through the embedding table (tied) or `lm_head` (both
-    [V, D]); logits in fp32."""
+    [V, D]); logits in fp32, softcapped as `c * tanh(logits / c)` where
+    `final_softcap` c > 0 (gemma2)."""
     table = params["embedding"] if tied else params["lm_head"]
-    return (x @ table.T).float()
+    logits = (x @ table.T).float()
+    if final_softcap > 0.0:
+        logits = final_softcap * torch.tanh(logits / final_softcap)
+    return logits
 
 
 def cross_entropy_loss(logits: Tensor, labels: Tensor,

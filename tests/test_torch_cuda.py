@@ -232,6 +232,95 @@ def test_flash_attention_tc_kernel_over_2048_tokens(rnd, case):
         assert bool((out[:, :start] == 0).all())
 
 
+#: The transformer family's attention heads: (label, H, KVH, D), decode
+#: groups 3 (smollm), 6 (qwen2), 8 (qwen2.5), 9 (starcoder2) and phi-3's
+#: MHA at head_dim 96.
+FAMILY_HEADS = [("smollm", 15, 5, 64), ("qwen2", 12, 2, 128),
+                ("qwen2.5", 16, 2, 128), ("starcoder2", 36, 4, 128),
+                ("phi3", 32, 32, 96)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("heads", FAMILY_HEADS, ids=lambda c: c[0])
+def test_decode_attention_at_the_family_heads(rnd, heads, dtype):
+    """Decode attention at each new path's heads: batch 28 over a 128-slot
+    layer slice with ragged windows, and batch 4 over 4096 slots (split
+    KV and the combine kernel), held to tol times each row's max |ref|
+    there, as the long-cache rows are."""
+    _, h, kvh, d = heads
+    dt, tol = DTYPES[dtype]
+    q, cache = rnd((28, h, d), dt), rnd((2, 2, 28, 128, kvh, d), dt)
+    gen = torch.Generator().manual_seed(h)
+    lens = torch.randint(16, 129, (28,), generator=gen)
+    starts = torch.minimum(torch.randint(0, 8, (28,), generator=gen),
+                           lens - 1)
+    lens, starts = _i32(lens.tolist()), _i32(starts.tolist())
+    torch.testing.assert_close(
+        dec_ops.decode_attention(q, cache[0, 1], cache[1, 1], lens, starts),
+        dec_ops.decode_attention_ref(q, cache[0, 1], cache[1, 1], lens,
+                                     starts), rtol=tol, atol=tol)
+    q, kv = rnd((4, h, d), dt), rnd((2, 4, 4096, kvh, d), dt)
+    lens, starts = _i32([4096, 4001, 2500, 700]), _i32([0, 0, 96, 3])
+    before = dec_ops.combine_launches
+    out = dec_ops.decode_attention(q, kv[0], kv[1], lens, starts)
+    n_splits, _ = dec_ops.split_plan(4, kvh, 4096, dec_ops.sm_count(q.device))
+    assert dec_ops.combine_launches == before + (n_splits > 1)
+    ref = dec_ops.decode_attention_ref(q, kv[0], kv[1], lens, starts).float()
+    limit = tol * ref.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((out.float() - ref).abs() <= limit).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("heads", FAMILY_HEADS, ids=lambda c: c[0])
+def test_flash_attention_at_the_family_heads(rnd, heads, dtype):
+    """Prefill attention over the engine's 28 left-padded 16-token
+    prompts at each new path's heads (head_dim 96 included)."""
+    _, h, kvh, d = heads
+    dt, tol = DTYPES[dtype]
+    q, k, v = rnd((28, 16, h, d), dt), rnd((28, 16, kvh, d), dt), \
+        rnd((28, 16, kvh, d), dt)
+    starts = torch.arange(28, device="cuda", dtype=torch.int32) % 16
+    out = fl_ops.flash_attention(q, k, v, kv_start=starts)
+    assert row_scaled_error(out, fl_ops.attention_ref(
+        q, k, v, kv_start=starts)) <= tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", [
+    # (dtype, B, S, window, kv_start)
+    ("bfloat16", 28, 16, 4096, "pads"),
+    ("float32", 28, 16, 4096, "pads"),
+    ("bfloat16", 1, 4200, 4096, None),
+    ("bfloat16", 2, 600, 100, None),
+    ("float32", 2, 600, 100, None),
+])
+def test_flash_attention_at_gemma2_heads(rnd, case):
+    """gemma2-27b's attention: 32/16 heads x 128 under its softcap 50 and
+    query scale 144^-1/2, on local layers' window: the engine's prompts
+    (the window inert), one 4200-token prompt (the 4096 window drops the
+    first keys of the last rows; bf16, the type the engine's long
+    prefills run in) and a 100-token window over 600 tokens."""
+    dtype, b, s, window, pads = case
+    dt, tol = DTYPES[dtype]
+    scale = (4608 / 32) ** -0.5
+    # q scaled by 3, so the logits reach where the softcap bends them.
+    q, k, v = rnd((b, s, 32, 128), dt, 3.0), rnd((b, s, 16, 128), dt), \
+        rnd((b, s, 16, 128), dt)
+    starts = None if pads is None else \
+        torch.arange(b, device="cuda", dtype=torch.int32) % s
+    kw = dict(scale=scale, window=window, softcap=50.0, kv_start=starts)
+    out = fl_ops.flash_attention(q, k, v, **kw)
+    ref = fl_ops.attention_ref(q, k, v, **kw)
+    assert bool(torch.isfinite(out).all())
+    assert row_scaled_error(out, ref) <= tol
+    # The cap and the scale are honoured, not dropped: without them the
+    # output is another.
+    plain = fl_ops.attention_ref(q, k, v, window=window, kv_start=starts)
+    assert row_scaled_error(plain, ref) > tol
+
+
 @pytest.mark.requires_cuda
 def test_flash_attention_routes_by_dtype(rnd):
     """bf16 launches the tensor-core kernel (tc_launches advances), fp32
@@ -675,7 +764,8 @@ def test_rglru_rejects_what_the_kernel_cannot_take(rnd):
 # The fused decode as a CUDA graph
 # ---------------------------------------------------------------------------
 
-GRAPH_ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "rwkv6-3b", "recurrentgemma-9b")
+GRAPH_ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "rwkv6-3b", "recurrentgemma-9b",
+               "qwen2-1.5b", "starcoder2-7b", "gemma2-27b", "mixtral-8x22b")
 
 
 @pytest.fixture
@@ -684,13 +774,14 @@ def card():
         pytest.skip(CUDA_MISSING_REASON)
 
 
-def _smoke_bundle(arch):
+def _smoke_bundle(arch, **over):
     """The arch's smoke config in bf16 with its attention on the kernels
-    (head_dim 32: the smoke's 16 is below what they take)."""
+    (head_dim 32: the smoke's 16 is below what they take), with the fields
+    `over` set."""
     cfg = torch_configs.get_smoke(arch)
     if hasattr(cfg, "attn_impl"):
         cfg = dataclasses.replace(cfg, attn_impl="flash", head_dim=32)
-    bundle = bundle_for(cfg)
+    bundle = bundle_for(dataclasses.replace(cfg, **over))
     return bundle, bundle.init_params(0, "cuda")
 
 
@@ -742,6 +833,66 @@ def test_graph_decode_equals_eager_loop(card, arch):
     assert fused.compile_counts["decode_fused"] == 1
     assert loop.compile_counts["decode_fused"] == 0
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.requires_cuda
+def test_int8_cache_on_the_card_matches_the_cpu(card):
+    """qwen2-smoke (head_dim 32) in fp32 with the int8 cache: a ragged
+    prefill and 6 decode steps on the card (the kernels, decode attention
+    over the dequantized cache) against the same weights on the CPU (plain
+    versions) within 1e-4, the cache's codes within one step and its
+    scales within 1e-5 of the CPU's; then the bf16 engine's graph-replayed
+    tokens equal its eager loop's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle, params = _smoke_bundle("qwen2-1.5b", kv_cache_dtype="int8",
+                                   dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for lp in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            lp["attn"][name].add_(0.3 * torch.randn(
+                lp["attn"][name].shape, generator=gen, device="cuda"))
+    cpu_params = {k: ([{a: ({b: t.cpu() for b, t in v.items()}
+                            if isinstance(v, dict) else v.cpu())
+                        for a, v in lp.items()} for lp in p]
+                      if k == "layers" else
+                      ({a: t.cpu() for a, t in p.items()}
+                       if isinstance(p, dict) else p.cpu()))
+                  for k, p in params.items()}
+    toks = torch.from_numpy(np.stack([np.pad(p, (9 - len(p), 0))
+                                      for p in _card_prompts([9, 5, 2], 6)]))
+    mask = toks != 0
+    outs, caches = {}, {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        cache = bundle.init_cache(3, 32, dev)
+        assert cache["global"]["k"].dtype == torch.int8
+        dmask = torch.ones((3, 32), dtype=torch.bool, device=dev)
+        dmask[:, :9] = mask.to(dev)
+        logits, cache = bundle.prefill(p, toks.to(dev), cache,
+                                       attn_mask=mask.to(dev))
+        seq = [logits.cpu()]
+        for i in range(6):
+            tok = torch.argmax(seq[-1] if dev == "cuda" else outs["cuda"][i],
+                               dim=-1)
+            logits, cache = bundle.decode_step(p, tok.to(dev), cache, 9 + i,
+                                               attn_mask=dmask)
+            seq.append(logits.cpu())
+        outs[dev], caches[dev] = torch.stack(seq), cache
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    for name, leaf in caches["cuda"]["global"].items():
+        ref = caches["cpu"]["global"][name]
+        if leaf.dtype == torch.int8:
+            assert int((leaf.cpu().int() - ref.int()).abs().max()) <= 1
+        else:
+            torch.testing.assert_close(leaf.cpu(), ref, rtol=1e-5, atol=1e-7)
+
+    bundle, params = _smoke_bundle("qwen2-1.5b", kv_cache_dtype="int8")
+    prompts = _card_prompts([5, 8, 2], seed=7)
+    before = dec_ops.launches
+    out_f, _ = _card_engine(bundle, params).generate(prompts, 6)
+    out_l, _ = _card_engine(bundle, params, "loop").generate(prompts, 6)
+    np.testing.assert_array_equal(out_f, out_l)
+    assert dec_ops.launches > before
 
 
 class _HostSyncStep:
