@@ -56,7 +56,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      as inside the engine's decode graph, without the host's launches,
      which the event time of phase 2's other rows includes).  Prefill
      attention also runs at recurrentgemma-9b's heads (16/1 x 256,
-     window 2048), and RMSNorm at its d_model 4096.  Prefill attention (bf16: the
+     window 2048), and RMSNorm at its d_model 4096, and at phi-3-vision's
+     heads (32 x 96) with a 16-slot prefix before left pads of 0, 5 and
+     15 slots (`prefix_len`: a row's keys [0, 16) and [16 + pads, S)).  Prefill attention (bf16: the
      tensor-core kernel; fp32: the CUDA-core one) is held row by row, each
      query row to tol * its own max|ref|, and in bf16 also runs at 4 x 4000
      tokens: llama's heads (causal; phase 6's shapes, SDPA with
@@ -94,7 +96,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      without pads) and mixtral-smoke's shape (the grouped GEMM over ring
      local layers); and the continuous workload on the gemma2 and int8
      narrow models (gemma2 at a prompt bucket of 4, so short admitted
-     prompts are rolled into its ring);
+     prompts are rolled into its ring); then the narrow phi-3 with its 8
+     prefix embeddings before left pads of 0, 5, 15 and 30 slots: the
+     prefill's logits, flash vs naive on the card and card vs CPU;
   4. the main paths: llama3.2-1b (4a) and olmoe-1b-7b (4b) at full width
      (16 layers, d_model 2048, bf16, attn_impl="flash", 16-token prompts)
      and rwkv6-3b (4c: 32 layers, d_model 2560, bf16, 64-token prompts in
@@ -164,7 +168,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      limit]; then one window of >= 1 s of generates at MAX_BATCH,
      metered beside the board's energy counter
      (`nvmlDeviceGetTotalEnergyConsumption`).  Nothing falls back to a
-     simulated sensor.
+     simulated sensor;
+  9. the paper's search loop: (a) `search_mode`'s search over the modelled
+     Jetson AGX Orin landscape of llama3.2-1b and qwen2.5-3b, 49 pulls,
+     every policy but the fleet-only contextual one, at K 1 and 4, the
+     landscape's batched pulls evaluated on the card, each run held to the
+     same call on the CPU (the same arms record by record and commit,
+     costs within 1e-6 relative); (b) `validate_mode` at 2500 requests on
+     both models, each configuration's modelled Orin EDP and
+     `edp_vs_maxf_maxb`; (c) `fleet_run` on 4 devices with camel and
+     contextual: the async controller without a straggler equals the
+     batch one record by record, and under a 4x straggler its simulated
+     wall clock and mean staleness; (d) on llama3.2-1b's full-width engine
+     (after its phases 4-8), the batch controller at K 4 and the async one
+     at K 1, 8 pulls each through `EngineEnvironment`: kernel executions
+     as those generates imply (added to the record's launches), every
+     staleness 0, the posterior equal to the records' costs chained
+     through `update`, and the controller's host time a round (select +
+     update, pulls excluded).  Its seconds are printed (`phase 9
+     seconds=`).
 
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the four
@@ -234,6 +256,9 @@ PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel",
                      "flash_attention_wgmma", "moe_gemm_",
                      "wkv6_", "rglru_", "decode_attention_split",
                      "decode_attention_combine")
+#: Phase 2's and phase 3's prefix before left pads: phi-3-vision's 16-slot
+#: prefix and one row for each pad count.
+PREFIX_LEN, PREFIX_PADS = 16, (0, 5, 15)
 #: The long-cache generate of phase 6: llama3.2-1b at batch 4 over a
 #: 4096-slot cache (4000-token prompts), where decode attention splits the
 #: KV axis across CTAs and merges the partials in a second kernel.
@@ -486,10 +511,14 @@ def kernel_checks(torch, ops):
               4 * keys * h * d, is_main, to_max_ref=s_len == LONG_SEQ_LEN)
 
     def prefill_case(dtype_name, h, kvh, d, is_main, window=0,
-                     b=MAX_BATCH, sq=PROMPT_LEN, softcap=0.0, scale=None):
+                     b=MAX_BATCH, sq=PROMPT_LEN, softcap=0.0, scale=None,
+                     prefix=0):
         """Prefill attention over `b` prompts of `sq` tokens, held row by
         row to the plain version.  The engine's prompts carry left pads
-        (kv_start); the long ones do not.  Over long prompts the plain
+        (kv_start); the long ones do not.  With `prefix` slots, row i
+        keeps keys [0, prefix) valid before its PREFIX_PADS[i] left pads
+        (`prefix_len`; its inputs from a generator of its own, so the
+        rows after it draw what they drew before it was added).  Over long prompts the plain
         version's [B, KVH, G, Sq, Sk] fp32 scores (~33 GB at llama's 4 x
         4000) are too large to run at batch b, so there it runs one prompt
         at a time for the comparison and is timed at batch 1 (3 windows of
@@ -499,20 +528,34 @@ def kernel_checks(torch, ops):
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
         fa = ops["flash_attention"]
-        long = sq > PROMPT_LEN
-        q, k, v = rnd((b, sq, h, d), dt), rnd((b, sq, kvh, d), dt), \
-            rnd((b, sq, kvh, d), dt)
-        starts = None if long else ints(0, 8, b)
+        long = sq > PROMPT_LEN and not prefix
+        pre = None
+        if prefix:
+            own = torch.Generator(device=dev).manual_seed(prefix)
+            q, k, v = (torch.randn(shape, generator=own, device=dev).to(dt)
+                       for shape in ((b, sq, h, d), (b, sq, kvh, d),
+                                     (b, sq, kvh, d)))
+            pre = torch.full((b,), prefix, dtype=torch.int32, device=dev)
+            starts = torch.tensor([prefix + p for p in PREFIX_PADS],
+                                  dtype=torch.int32, device=dev)
+        else:
+            q, k, v = rnd((b, sq, h, d), dt), rnd((b, sq, kvh, d), dt), \
+                rnd((b, sq, kvh, d), dt)
+            starts = None if long else ints(0, 8, b)
         pos = torch.arange(sq, device=dev)
         mask = (pos[:, None] >= pos[None, :])[None]
         if window:
             mask = mask & (pos[None, None, :] > pos[None, :, None] - window)
         if starts is not None:
-            mask = mask & (pos[None, None, :] >= starts[:, None, None].long())
+            valid = pos[None, None, :] >= starts[:, None, None].long()
+            if pre is not None:
+                valid = valid | (pos[None, None, :] < pre[:, None, None])
+            mask = mask & valid
         pairs = int(mask.sum()) * (b // mask.shape[0])
         shape = (b, sq, kvh, h // kvh, d) + ((f"window {window}",)
                                              if window else ()) + (
-            (f"softcap {softcap:g} scale {scale:.6f}",) if softcap else ())
+            (f"softcap {softcap:g} scale {scale:.6f}",) if softcap else ()) \
+            + ((f"prefix {prefix} pads {PREFIX_PADS}",) if prefix else ())
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if softcap:
             library = flex_library(torch, qt, kt, vt, scale, softcap, window,
@@ -529,14 +572,16 @@ def kernel_checks(torch, ops):
         def kernel():
             return fa.flash_attention(q, k, v, window=window,
                                       softcap=softcap, scale=scale,
-                                      kv_start=starts)
+                                      kv_start=starts, prefix_len=pre)
 
         def plain(lo=0, hi=1 if long else b):
             return fa.attention_ref(q[lo:hi], k[lo:hi], v[lo:hi],
                                     window=window, softcap=softcap,
-                                    scale=scale, kv_start=starts)
+                                    scale=scale, kv_start=starts,
+                                    prefix_len=pre)
         check("flash_attention", dtype_name, shape, kernel, plain, library,
-              (2 * q.numel() + 2 * k.numel()) * e + (0 if long else 4 * b),
+              (2 * q.numel() + 2 * k.numel()) * e + (0 if long else 4 * b)
+              + (4 * b if prefix else 0),
               4 * pairs * h * d, is_main, per_row=True,
               compare=(kernel, lambda: torch.cat(
                   [plain(i, i + 1) for i in range(b)])) if long else None,
@@ -705,6 +750,9 @@ def kernel_checks(torch, ops):
         prefill_case(dtype_name, 32, 8, 64, is_bf16)
         prefill_case(dtype_name, 16, 16, 128, False)
         prefill_case(dtype_name, 16, 1, 256, False, window=2048)
+        # phi-3-vision's heads with a prefix before left pads.
+        prefill_case(dtype_name, 32, 32, 96, False, b=len(PREFIX_PADS),
+                     sq=PREFIX_LEN + PREFIX_PADS[-1] + 17, prefix=PREFIX_LEN)
         if is_bf16:
             # Continuous batching's admission: one left-padded 16-token
             # row at a time (phase 7), at each path's heads.
@@ -1186,6 +1234,48 @@ def family_model_check(torch, rt):
                 fail(f"{label}: {what}: logits differ by {diff}")
         if base.kv_cache_dtype == "int8":
             int8_cache_check(torch, label, cache, cpu_cache)
+    prefix_pads_check(torch, rt, b, plen)
+
+
+def prefix_pads_check(torch, rt, b, plen):
+    """The narrow phi-3 with its prefix before left pads (the kernels'
+    `prefix_len` route): the prefill's last-position logits, flash vs
+    naive on the card and flash on the card vs on the CPU, within 1e-4.
+    The prefill alone: decode after it reads the window the reference's
+    decode reads (ROADMAP.md, known divergences), not the prefill's."""
+    import dataclasses
+    from repro_torch.models.frontends import VisionStub
+    base = family_narrow_configs(torch, rt)["phi3"]
+    params = narrow_params(torch, rt, "phi3", base)
+    pads = torch.tensor(PREFIX_PADS + (30,))[:b]
+    mask = torch.arange(plen)[None] >= pads[:, None]
+    toks = torch.randint(1, base.vocab_size, (b, plen),
+                         generator=torch.Generator().manual_seed(1))
+    toks = torch.where(mask, toks, torch.zeros_like(toks))
+    prefix = VisionStub(base.num_prefix_embeddings, base.d_model).synth(
+        torch.Generator().manual_seed(2), b, torch.float32)
+    logits = {}
+    for impl, device in (("naive", "cuda"), ("flash", "cuda"),
+                         ("flash", "cpu")):
+        bundle = rt.bundle_for(dataclasses.replace(base, attn_impl=impl))
+        p = params if device == "cuda" else _tree_to(params, "cpu")
+        out, _ = bundle.prefill(p, toks.to(device),
+                                bundle.init_cache(b, 64, device),
+                                prefix_embeddings=prefix.to(device),
+                                attn_mask=mask.to(device))
+        logits[impl, device] = out.cpu()
+    for what, a, ref in (("flash-vs-naive on the card",
+                          logits["flash", "cuda"], logits["naive", "cuda"]),
+                         ("flash on the card (kernels) vs on the CPU (plain "
+                          "versions)", logits["flash", "cuda"],
+                          logits["flash", "cpu"])):
+        diff = (a - ref).abs().max().item()
+        finite = bool(torch.isfinite(a).all().item())
+        say(f"model fp32 phi3 narrow (prefix {base.num_prefix_embeddings} "
+            f"before left pads {pads.tolist()}) {what}, prefill {plen}: "
+            f"max_abs_diff={diff:.3e} tol=1e-4 finite={finite}")
+        if not finite or not diff <= 1e-4:
+            fail(f"phi3 prefix before pads: {what}: logits differ by {diff}")
 
 
 def int8_cache_check(torch, label, card, cpu):
@@ -2100,6 +2190,183 @@ def measured_energy(torch, rt, engine, cfg, prompt_len, prompts, limit_w):
              f"{counter_j} J")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the paper's search loop on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 9: the pull budget of the search and fleet runs (the paper's 49
+#: arms), the validation's requests (the reference's default) and the
+#: fleet's devices.
+SEARCH_ROUNDS, VALIDATE_REQUESTS, FLEET_SIZE = 49, 2500, 4
+#: Phase 9(d): pulls of each controller on the engine.
+ENGINE_PULLS = 8
+
+
+def _same_records(label, a, b, rtol=1e-6, devices=False):
+    """Fail unless two controller results have the same arms record by
+    record (and, with `devices`, the same serving device), costs within
+    `rtol` relative, and the same commit."""
+    if len(a.records) != len(b.records):
+        fail(f"{label}: {len(a.records)} records against {len(b.records)}")
+    for ra, rb in zip(a.records, b.records):
+        if (ra.t, ra.arm, ra.round, ra.slot) != (rb.t, rb.arm, rb.round,
+                                                 rb.slot):
+            fail(f"{label}: record {ra.t} arm {ra.arm} against {rb.arm}")
+        if abs(ra.cost - rb.cost) > rtol * abs(rb.cost):
+            fail(f"{label}: record {ra.t} cost {ra.cost} against {rb.cost}")
+        if devices and ra.obs.metadata.get("device") != \
+                rb.obs.metadata.get("device"):
+            fail(f"{label}: record {ra.t} served by another device")
+    if a.best_arm != b.best_arm:
+        fail(f"{label}: best arm {a.best_arm} against {b.best_arm}")
+
+
+def search_on_card(torch):
+    """9(a)-(c): the paper's configuration search (Results 1) over the
+    modelled Jetson AGX Orin landscape, its batched pulls evaluated on the
+    card, for both Orin workloads, every policy but the fleet-only
+    contextual one, at K 1 and 4: each run on the card against the same
+    call on the CPU (the same arms record by record and commit, costs
+    within 1e-6 relative).  9(b): the event-driven validation (Results 2)
+    at the reference's 2500 requests.  9(c): the fleet modes on 4 devices,
+    camel and contextual: the async controller without a straggler equals
+    the batch one record by record, and under a 4x straggler its
+    simulated wall clock and staleness are printed.  Every energy, latency
+    and EDP figure here is the modelled Jetson AGX Orin, not this card's."""
+    from repro_torch.core import baselines
+    from repro_torch.launch import serve
+    from repro_torch.serving import energy
+    models = tuple(energy.ORIN_WORKLOADS)
+    policies = [p for p in sorted(baselines.POLICIES) if p != "contextual"]
+    for model in models:
+        for policy in policies:
+            for k in (1, 4):
+                t0 = time.monotonic()
+                out, res = serve.search_run(model, SEARCH_ROUNDS, 0.5, 0,
+                                            policy, k, device="cuda")
+                card_s = time.monotonic() - t0
+                _, cpu = serve.search_run(model, SEARCH_ROUNDS, 0.5, 0,
+                                          policy, k, device="cpu")
+                _same_records(f"search {model} {policy} k={k} card vs cpu",
+                              res, cpu)
+                say(f"search {model} policy={policy} k={k} "
+                    f"pulls={out['n_pulls']} rounds={out['n_rounds']} "
+                    f"best_knobs={out['best_knobs']} "
+                    f"optimal_knobs={out['optimal_knobs']} "
+                    f"found_optimal={out['found_optimal']} "
+                    f"cum_regret={out['cum_regret']:.6f} "
+                    f"modelled_orin_edp={out['edp']:.4f} card_s={card_s:.3f} "
+                    f"(card == cpu record by record)")
+    for model in models:
+        out = serve.validate_mode(model, VALIDATE_REQUESTS, 0.5, 0,
+                                  device="cuda")
+        for cname, row in out.items():
+            say(f"validate {model} {cname} knobs={row['knobs']} "
+                f"requests={row['n_requests']} "
+                f"modelled_orin_energy_j_per_req={row['energy_per_req']:.6f} "
+                f"latency_s={row['latency_per_req']:.6f} "
+                f"modelled_orin_edp={row['edp']:.6f} "
+                f"edp_vs_maxf_maxb={row['edp_vs_maxf_maxb']:.6f}")
+        if not out["maxf_maxb"]["edp_vs_maxf_maxb"] == 0.0 or \
+                not out["camel_optimal"]["edp"] > 0:
+            fail(f"validate {model}: bad EDP figures")
+    for policy in ("camel", "contextual"):
+        sync, sres = serve.fleet_run("llama3.2-1b", SEARCH_ROUNDS, 0.5, 0,
+                                     FLEET_SIZE, policy_name=policy,
+                                     device="cuda")
+        _, ares = serve.fleet_run("llama3.2-1b", SEARCH_ROUNDS, 0.5, 0,
+                                  FLEET_SIZE, policy_name=policy,
+                                  straggler=1.0, device="cuda")
+        _same_records(f"fleet {policy} async vs batch", ares, sres,
+                      rtol=0.0, devices=True)
+        if any(r.obs.metadata["staleness"] for r in ares.records):
+            fail(f"fleet {policy}: staleness without a straggler")
+        slow, _ = serve.fleet_run("llama3.2-1b", SEARCH_ROUNDS, 0.5, 0,
+                                  FLEET_SIZE, policy_name=policy,
+                                  straggler=4.0, device="cuda")
+        say(f"fleet {FLEET_SIZE}xjetson llama3.2-1b policy={policy} "
+            f"batch: best_knobs={sync['best_knobs']} "
+            f"found_optimal={sync['found_optimal']} rounds="
+            f"{sync['n_rounds']}; async straggler 1.0 == batch record by "
+            f"record; async straggler 4.0: wall_clock_sim_s="
+            f"{slow['wall_clock_sim_s']:.1f} mean_staleness="
+            f"{slow['mean_staleness']:.4f} max_staleness="
+            f"{slow['max_staleness']} found_optimal={slow['found_optimal']}")
+
+
+class HostTimed:
+    """A policy whose select and update calls add their host time to
+    `seconds` (signatures kept, so the controllers' keyword detection
+    sees the wrapped policy's)."""
+
+    def __init__(self, policy):
+        import functools
+        self.seconds = 0.0
+        self.init = policy.init
+        for name in ("select", "select_many", "update", "update_batch",
+                     "update_stale", "update_censored"):
+            fn = getattr(policy, name, None)
+            if fn is None:
+                continue
+
+            def timed(*a, fn=fn, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.seconds += time.perf_counter() - t0
+                return out
+            setattr(self, name, functools.wraps(fn)(timed))
+
+
+def controllers_on_engine(torch, rt, ops, engine, cfg, arch, prompt_len):
+    """9(d): the batch controller at K 4 and the async controller at K 1,
+    ENGINE_PULLS pulls each, on a path's full-width engine through
+    `EngineEnvironment`: the kernel executions equal what those generates
+    imply, every staleness is 0, the final posterior equals the records'
+    costs chained through `update`, and the controller's host time a round
+    (select + update, the pulls excluded) is printed.  Returns the
+    kernel executions of both runs."""
+    from repro_torch.core import bandit
+    from repro_torch.core.controller import AsyncController, BatchController
+    env = rt.EngineEnvironment(engine, rt.energy.JETSON_AGX_ORIN,
+                               rt.energy.ORIN_WORKLOADS["llama3.2-1b"],
+                               prompt_len=prompt_len,
+                               max_new_tokens=NEW_TOKENS, seed=0)
+    space = rt.make_space(f"engine/{arch}")
+    ref = env.pull(space.values(space.corner()), 0)
+    cm = rt.CostModel(alpha=0.5).with_reference(ref.energy, ref.latency)
+    totals = None
+    for cls, k in ((BatchController, 4), (AsyncController, 1)):
+        policy = HostTimed(rt.make_policy("camel", prior_mu=1.0,
+                                          prior_sigma=0.1))
+        ctrl = cls(space, policy, cm, seed=0, k=k)
+        counts, res = counted_run(torch, ops, engine,
+                                  lambda: ctrl.run(env, ENGINE_PULLS // k))
+        expected = expected_launches(engine.bundle.family, cfg,
+                                     len(res.records), prompt_len)
+        label = f"{cls.__name__} k={k} on {arch}"
+        if counts != expected:
+            fail(f"{label}: launch counts {counts} != expected {expected}")
+        stale = [r.obs.metadata.get("staleness", 0) for r in res.records]
+        if any(stale):
+            fail(f"{label}: staleness {stale}")
+        chained = bandit.init_state(space.n_arms, 1.0, 0.1)
+        for r in res.records:
+            chained = bandit.update(chained, r.arm, r.cost)
+        for leaf in ("mu", "sigma2", "count", "sum_x", "sum_x2", "stale_n"):
+            if not torch.equal(getattr(chained, leaf),
+                               getattr(res.final_state, leaf)):
+                fail(f"{label}: posterior {leaf} != the chained updates")
+        say(f"controller {label}: pulls={len(res.records)} "
+            f"rounds={res.n_rounds} arms={[r.arm for r in res.records]} "
+            f"launches={counts} (expected) staleness={stale} "
+            f"host_ms_per_round={1e3 * policy.seconds / res.n_rounds:.4f} "
+            f"(select + update, pulls excluded) best_knobs="
+            f"{res.best_knobs}")
+        totals = counts if totals is None else {
+            n: totals[n] + counts[n] for n in counts}
+    return totals
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     t_start = time.monotonic()
@@ -2169,6 +2436,7 @@ def main() -> None:
     # Phases 4 and 5, once per main path
     import gc
     totals = dict.fromkeys(ops, 0)
+    phase9_s = 0.0
     for arch, prompt_len, bucket, rounds, continuous in PATHS:
         counts, n_generate, cfg, engine, prompts = serve_full_width(
             torch, rt, ops, arch, prompt_len, bucket, rounds)
@@ -2200,9 +2468,23 @@ def main() -> None:
             admission_prefill(torch, engine, cfg, prompt_len)
             measured_energy(torch, rt, engine, cfg, prompt_len, prompts,
                             limit_w)
+        # Phase 9(d)
+        if arch == "llama3.2-1b":
+            t9 = time.monotonic()
+            counts = controllers_on_engine(torch, rt, ops, engine, cfg,
+                                           arch, prompt_len)
+            for name in totals:
+                totals[name] += counts[name]
+            phase9_s += time.monotonic() - t9
         del engine, prompts
         gc.collect()
         torch.cuda.empty_cache()
+
+    # Phase 9(a)-(c)
+    t9 = time.monotonic()
+    search_on_card(torch)
+    phase9_s += time.monotonic() - t9
+    say(f"phase 9 seconds={phase9_s:.1f}")
 
     say(f"chip_smoke total_s={time.monotonic() - t_start:.1f}")
     record = []

@@ -15,8 +15,13 @@
 // kernels' sequential "arbitrary" grid axis.
 //
 // Masking: key j is valid for a query at position qpos iff
-//   kv_start[b] <= j < Sk, and (causal) j <= qpos, and (window) j > qpos - W.
-// Row i of the prompt sits at qpos = i.
+//   (j < prefix_len[b] or kv_start[b] <= j < Sk), and (causal) j <= qpos,
+//   and (window) j > qpos - W.
+// Row i of the prompt sits at qpos = i.  A prefix placed before left pads
+// makes two segments of valid keys, [0, prefix_len) and [kv_start, Sk); the
+// key loop walks each in turn, so the chunks of the pad gap between them are
+// never read.  Without a prefix (prefix_len null or 0, or no gap) the loop
+// is the one segment [kv_start, Sk).
 // Scores are masked by select against a finite sentinel and the weights of
 // masked keys are selected to 0, so a row with no valid key (a left-pad
 // query row in prefill) ends with l = 0 and writes acc / max(l, 1e-30) = 0:
@@ -35,7 +40,8 @@ struct AttnParams {
   const void* k;
   const void* v;
   void* o;
-  const int* kv_start;  // [B] first valid key, or nullptr (= 0)
+  const int* kv_start;    // [B] first valid key after the pads, or nullptr
+  const int* prefix_len;  // [B] keys valid before the pads, or nullptr
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -65,12 +71,12 @@ __global__ void __launch_bounds__(NWARPS * 32)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  const int start = p.kv_start != nullptr ? max(p.kv_start[b], 0) : 0;
+  int start = p.kv_start != nullptr ? max(p.kv_start[b], 0) : 0;
+  int pre =
+      p.prefix_len != nullptr ? min(max(p.prefix_len[b], 0), p.Sk) : 0;
+  if (start <= pre) start = pre = 0;  // no gap: one segment [0, Sk)
   const int qlo = row0;
   const int qhi = row0 + rows - 1;
-  int kbeg = start;
-  if (p.window > 0) kbeg = max(kbeg, qlo - p.window + 1);
-  const int kend = p.causal ? min(p.Sk, qhi + 1) : p.Sk;
 
   const T* qg = static_cast<const T*>(p.q);
   const T* kg = static_cast<const T*>(p.k);
@@ -93,55 +99,64 @@ __global__ void __launch_bounds__(NWARPS * 32)
     for (int c = 0; c < DPL; ++c) acc[t][c] = 0.f;
   }
 
-  for (int j0 = kbeg; j0 < kend; j0 += kChunk) {
-    __syncthreads();  // q staged / previous chunk consumed
-    for (int idx = threadIdx.x; idx < kChunk * D; idx += NWARPS * 32) {
-      const int j = idx / D, d = idx % D;
-      const int key = j0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < kend) {
-        kx = to_f(kg[b * p.k_sb + key * p.k_ss + kvh * p.k_sh + d]);
-        vx = to_f(vg[b * p.v_sb + key * p.v_ss + kvh * p.v_sh + d]);
+  // Segment 0: the prefix [0, pre); segment 1: the keys [start, Sk).
+  for (int seg = pre > 0 ? 0 : 1; seg < 2; ++seg) {
+    const int lo = seg == 0 ? 0 : start;
+    int kbeg = lo;
+    if (p.window > 0) kbeg = max(kbeg, qlo - p.window + 1);
+    const int hi = seg == 0 ? pre : p.Sk;
+    const int kend = p.causal ? min(hi, qhi + 1) : hi;
+    for (int j0 = kbeg; j0 < kend; j0 += kChunk) {
+      __syncthreads();  // q staged / previous chunk consumed
+      for (int idx = threadIdx.x; idx < kChunk * D; idx += NWARPS * 32) {
+        const int j = idx / D, d = idx % D;
+        const int key = j0 + j;
+        float kx = 0.f, vx = 0.f;
+        if (key < kend) {
+          kx = to_f(kg[b * p.k_sb + key * p.k_ss + kvh * p.k_sh + d]);
+          vx = to_f(vg[b * p.v_sb + key * p.v_ss + kvh * p.v_sh + d]);
+        }
+        ks[j * (D + 1) + d] = kx;
+        vs[j * D + d] = vx;
       }
-      ks[j * (D + 1) + d] = kx;
-      vs[j * D + d] = vx;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    const int key = j0 + lane;
+      const int key = j0 + lane;
 #pragma unroll
-    for (int t = 0; t < PPW; ++t) {
-      const int pr = warp + NWARPS * t;
-      if (pr >= npairs) break;  // warp-uniform
-      const int qpos = row0 + pr / G;
-      bool valid = key < kend && key >= start;
-      if (p.causal) valid = valid && key <= qpos;
-      if (p.window > 0) valid = valid && key > qpos - p.window;
-      if (!__any_sync(kFullMask, valid)) continue;
+      for (int t = 0; t < PPW; ++t) {
+        const int pr = warp + NWARPS * t;
+        if (pr >= npairs) break;  // warp-uniform
+        const int qpos = row0 + pr / G;
+        bool valid = key < kend && key >= lo;
+        if (p.causal) valid = valid && key <= qpos;
+        if (p.window > 0) valid = valid && key > qpos - p.window;
+        if (!__any_sync(kFullMask, valid)) continue;
 
-      float s = kNegSentinel;
-      if (valid) {
-        const float* qr = qs + pr * D;
-        const float* kr = ks + lane * (D + 1);
-        float dot = 0.f;
+        float s = kNegSentinel;
+        if (valid) {
+          const float* qr = qs + pr * D;
+          const float* kr = ks + lane * (D + 1);
+          float dot = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
-        if (p.softcap > 0.f) dot = p.softcap * tanhf(dot / p.softcap);
-        s = dot;
-      }
-      const float m_new = fmaxf(m[t], warp_max(s));
-      const float pj = valid ? expf(s - m_new) : 0.f;
-      const float corr = expf(m[t] - m_new);
-      l[t] = l[t] * corr + warp_sum(pj);
+          for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
+          if (p.softcap > 0.f) dot = p.softcap * tanhf(dot / p.softcap);
+          s = dot;
+        }
+        const float m_new = fmaxf(m[t], warp_max(s));
+        const float pj = valid ? expf(s - m_new) : 0.f;
+        const float corr = expf(m[t] - m_new);
+        l[t] = l[t] * corr + warp_sum(pj);
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[t][c] *= corr;
+        for (int c = 0; c < DPL; ++c) acc[t][c] *= corr;
 #pragma unroll 8
-      for (int j = 0; j < kChunk; ++j) {
-        const float pb = __shfl_sync(kFullMask, pj, j);
+        for (int j = 0; j < kChunk; ++j) {
+          const float pb = __shfl_sync(kFullMask, pj, j);
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[t][c] += pb * vs[j * D + lane + 32 * c];
+          for (int c = 0; c < DPL; ++c)
+            acc[t][c] += pb * vs[j * D + lane + 32 * c];
+        }
+        m[t] = m_new;
       }
-      m[t] = m_new;
     }
   }
 

@@ -1,12 +1,16 @@
 // Prefill (flash) attention forward for Hopper (sm_90a): causal, sliding
-// window, tanh softcap, GQA, per-row left-pad start `kv_start`.
+// window, tanh softcap, GQA, per-row left-pad start `kv_start` and per-row
+// `prefix_len` (keys valid before the pads).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` / `flash_attention_fwd`
 // (src/repro/kernels/flash_attention/flash_attention.py:38, call :134),
 // plus what the engine's prefill needs and the Pallas kernel lacks: the
 // per-row start of the valid keys (the left-pad prefix of models/flash.py's
-// `kv_valid`).  q/k/v are read in [B, S, H, D] in place through their
-// strides; the output is written contiguous [B, Sq, H, D].  Two routes, one
+// `kv_valid`), and a prefix of keys that stay valid before the pads (prefix
+// embeddings before a left-padded prompt: a row's valid keys are
+// [0, prefix_len) and [kv_start, Sk)).  q/k/v are read in [B, S, H, D] in
+// place through their strides; the output is written contiguous
+// [B, Sq, H, D].  Two routes, one
 // C entry point each, chosen by the wrapper (kernels/flash_attention/ops.py)
 // from the dtype:
 //
@@ -37,7 +41,11 @@
 // pairs), running on into the next item while this one finishes.  Only the
 // key range some row of the item can see is loaded (causal frontier, window
 // start, kv_start); a warpgroup skips the tiles none of its rows can see,
-// and only the tiles at the edges of its range are masked.  Per tile a
+// and only the tiles at the edges of its range are masked.  With a prefix
+// before the pads an item's tiles are two runs, the prefix's [0, prefix_len)
+// and then [kv_start, Sk): the tiles of the pad gap between them are never
+// loaded, and each run's tiles are masked to their own run, so a key that
+// both runs' edge tiles cover counts once.  Per tile a
 // warpgroup runs S = q K^T (wgmma, both operands in shared memory), the
 // online softmax in registers (fp32, exp2 with the scale folded into one
 // FFMA, quad shuffles for the row max, a stale max kept while it is within
@@ -81,7 +89,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct TcParams {
   void* o;
-  const int* kv_start;  // [B] first valid key, or nullptr (= 0)
+  const int* kv_start;    // [B] first valid key after the pads, or nullptr
+  const int* prefix_len;  // [B] keys valid before the pads, or nullptr (= 0)
   long long o_sb, o_ss;
   int Sq, Sk, D, G;
   int gp_log2;          // log2 of the query heads packed into a tile
@@ -155,7 +164,7 @@ __device__ __forceinline__ void pv_step(float (&o)[R], const uint32_t (&a)[4],
     wgmma_m64n256k16_rs<1>(o, a, db);
 }
 
-template <int NC, int BN, int ST, int NWG>
+template <int NC, int BN, int ST, int NWG, bool kPrefix>
 __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
     flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -178,8 +187,19 @@ __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
   const int P = kTcRows >> p.gp_log2;  // positions a warpgroup
   const int per_pb = p.KVH * p.n_hg * p.B;
   const int n_items = per_pb * p.n_pb;
+  // Tile t of an item starts at key kb + t * BN.  With a prefix (kPrefix,
+  // the instantiation launched when prefix_len is given) tiles [0, n_pre)
+  // start at kp + t * BN and hold the prefix [0, pre), and tiles
+  // [n_pre, n_tiles) start at kb + (t - n_pre) * BN and hold [start, Sk);
+  // with no gap between the two, n_pre = 0.
   struct Item {
-    int b, kvh, h0, pos0, start, kb, n_tiles;
+    int b, kvh, h0, pos0, start, kb, n_tiles, pre, kp, n_pre;
+  };
+  auto tile_key = [](const Item& w, int t) {  // first key of tile t
+    if constexpr (kPrefix)
+      return t < w.n_pre ? w.kp + t * BN : w.kb + (t - w.n_pre) * BN;
+    else
+      return w.kb + t * BN;
   };
   auto item_at = [&](int idx) {
     Item w;
@@ -191,13 +211,25 @@ __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
     w.b = rest / p.KVH;
     w.h0 = w.kvh * p.G + hg * gp;
     w.pos0 = pb * NWG * P;
-    // The keys some row of the item can see: [kb, ke).
+    // The keys some row of the item can see: [kb, ke), and with a prefix
+    // [kp, kpe) of it before them.
     w.start = p.kv_start != nullptr ? max(p.kv_start[w.b], 0) : 0;
     const int pos_hi = min(w.pos0 + NWG * P, p.Sq) - 1;
-    w.kb = w.start;
-    if (p.window > 0) w.kb = max(w.kb, w.pos0 - p.window + 1);
     const int ke = p.causal ? min(p.Sk, pos_hi + 1) : p.Sk;
-    w.n_tiles = ke > w.kb ? (ke - w.kb + BN - 1) / BN : 0;
+    w.pre = w.kp = w.n_pre = 0;
+    if constexpr (kPrefix) {
+      w.pre = min(max(p.prefix_len[w.b], 0), p.Sk);
+      if (w.start <= w.pre) w.start = w.pre = 0;  // no gap: one run [0, Sk)
+      const int lo = p.window > 0 ? w.pos0 - p.window + 1 : 0;
+      w.kp = max(0, lo);
+      const int kpe = p.causal ? min(w.pre, pos_hi + 1) : w.pre;
+      w.n_pre = kpe > w.kp ? (kpe - w.kp + BN - 1) / BN : 0;
+      w.kb = max(w.start, lo);
+    } else {
+      w.kb = w.start;
+      if (p.window > 0) w.kb = max(w.kb, w.pos0 - p.window + 1);
+    }
+    w.n_tiles = w.n_pre + (ke > w.kb ? (ke - w.kb + BN - 1) / BN : 0);
     return w;
   };
   const int wg = threadIdx.x >> 7;
@@ -249,7 +281,7 @@ __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
           mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
           mbar_expect_tx(full(s), Sh::kLoadBytes);
           const uint32_t st = kvs + s * Sh::kStageBytes;
-          const int j0 = w.kb + t * BN;
+          const int j0 = tile_key(w, t);
           for (int c = 0; c < NC; ++c) {
             tma_load_4d(st + c * Sh::kKVChunk, &kmap, full(s), 64 * c, w.kvh,
                         j0, w.b);
@@ -282,13 +314,40 @@ __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
       const int qp0 = wlo + (r >> p.gp_log2);
       const int qp1 = wlo + ((r + 8) >> p.gp_log2);
       // This warpgroup's keys [kb_w, ke_w) lie in tiles [t_lo, t_hi).
-      int kb_w = start;
-      if (p.window > 0) kb_w = max(kb_w, wlo - p.window + 1);
-      const int ke_w = p.causal ? min(p.Sk, whi + 1) : p.Sk;
       int t_lo = 0, t_hi = 0;
-      if (wlo < p.Sq && ke_w > kb_w && n_tiles > 0) {
-        t_lo = max(0, (kb_w - kb) / BN);
-        t_hi = min(n_tiles, (ke_w - kb + BN - 1) / BN);
+      if constexpr (kPrefix) {
+        // [kp_w, kpe_w) of the prefix too.  Under a causal mask a warpgroup
+        // that sees keys after the pads sees the whole prefix, and under a
+        // window one that sees some of the prefix sees every key from
+        // start on, so no tile it needs lies outside one unbroken range.
+        const int n_pre = w.n_pre;
+        const int lo_w = p.window > 0 ? wlo - p.window + 1 : 0;
+        const int hi_w = p.causal ? whi + 1 : p.Sk;
+        if (wlo < p.Sq && n_tiles > 0) {
+          int tl = n_tiles, th = 0;
+          const int kp_w = max(0, lo_w), kpe_w = min(w.pre, hi_w);
+          if (n_pre > 0 && kpe_w > kp_w) {
+            tl = max(0, (kp_w - w.kp) / BN);
+            th = min(n_pre, (kpe_w - w.kp + BN - 1) / BN);
+          }
+          const int kb_w = max(start, lo_w), ke_w = min(p.Sk, hi_w);
+          if (n_tiles > n_pre && ke_w > kb_w) {
+            tl = min(tl, n_pre + max(0, (kb_w - kb) / BN));
+            th = max(th, min(n_tiles, n_pre + (ke_w - kb + BN - 1) / BN));
+          }
+          if (tl < th) {
+            t_lo = tl;
+            t_hi = th;
+          }
+        }
+      } else {
+        int kb_w = start;
+        if (p.window > 0) kb_w = max(kb_w, wlo - p.window + 1);
+        const int ke_w = p.causal ? min(p.Sk, whi + 1) : p.Sk;
+        if (wlo < p.Sq && ke_w > kb_w && n_tiles > 0) {
+          t_lo = max(0, (kb_w - kb) / BN);
+          t_hi = min(n_tiles, (ke_w - kb + BN - 1) / BN);
+        }
       }
       const uint32_t qa = base + qb * Sh::kQBytes + wg * NC * Sh::kQChunk;
       // Tile t of this item sits in stage (it0 + t) % ST.
@@ -327,7 +386,11 @@ __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
       // The online softmax of tile t: sc becomes the weights (fp32); returns
       // the factors c0, c1 that rescale rows r and r + 8 of O.
       auto softmax = [&](int t, float& c0, float& c1) {
-        const int j0 = kb + t * BN;
+        const int j0 = tile_key(w, t);
+        // The run tile t belongs to: the prefix [0, pre) or [start, Sk).
+        const bool in_pre = kPrefix && t < w.n_pre;
+        const int seg_lo = in_pre ? 0 : start;
+        const int seg_hi = in_pre ? w.pre : p.Sk;
         if (capped) {
           const float inv = p.scale / p.softcap;
 #pragma unroll
@@ -335,7 +398,7 @@ __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
             sc[i] = p.softcap * tanhf(sc[i] * inv);
         }
         // Only the tiles at the edges of some row's key range are masked.
-        const bool edge = j0 < start || j0 + BN > p.Sk ||
+        const bool edge = j0 < seg_lo || j0 + BN > seg_hi ||
                           (p.causal && j0 + BN - 1 > wlo) ||
                           (p.window > 0 && j0 <= whi - p.window);
         if (edge) {
@@ -343,7 +406,7 @@ __global__ void __launch_bounds__(TcShape<NC, BN, ST, NWG>::kThreads, 1)
           for (int i = 0; i < BN / 2; ++i) {
             const int key = j0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
             const int qp = (i & 2) ? qp1 : qp0;
-            bool ok = key >= start && key < p.Sk;
+            bool ok = key >= seg_lo && key < seg_hi;
             if (p.causal) ok = ok && key <= qp;
             if (p.window > 0) ok = ok && key > qp - p.window;
             if (!ok) sc[i] = kNegSentinel;
@@ -567,7 +630,11 @@ cudaError_t launch_tc(const TcArgs& a, TcParams p, cudaStream_t stream) {
       !make_attn_map(&vmap, a.v, a.D, a.KVH, a.Sk, a.B, a.v_sh, a.v_ss,
                      a.v_sb, 1, BN))
     return cudaErrorInvalidValue;
-  auto kern = flash_attention_wgmma<NC, BN, ST, NWG>;
+  // The prefix-aware instantiation only where a prefix is given: without
+  // one the kernel is the one the wrapper always launched.
+  auto kern = p.prefix_len != nullptr
+                  ? flash_attention_wgmma<NC, BN, ST, NWG, true>
+                  : flash_attention_wgmma<NC, BN, ST, NWG, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
   if (err != cudaSuccess) return err;
@@ -591,9 +658,10 @@ cudaError_t launch_tc(const TcArgs& a, TcParams p, cudaStream_t stream) {
 // rows_per_cta = 64 / G query rows, i.e. 64 (row, head) pairs.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, const int* kv_start,
-    int B, int Sq, int Sk, int H, int KVH, int D, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    const int* prefix_len, int B, int Sq, int Sk, int H, int KVH, int D,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh,
     int causal, int window, float softcap, float scale, void* stream) {
   constexpr int kWarps = 8, kPairsPerWarp = 8;
   const int G = H / KVH;
@@ -604,6 +672,7 @@ extern "C" int flash_attention_launch(
   p.v = v;
   p.o = o;
   p.kv_start = kv_start;
+  p.prefix_len = prefix_len;
   p.q_sb = q_sb;
   p.q_ss = q_ss;
   p.q_sh = q_sh;
@@ -634,9 +703,10 @@ extern "C" int flash_attention_launch(
 // bases and strides (TMA); the wrapper checks both.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o, const int* kv_start,
-    int B, int Sq, int Sk, int H, int KVH, int D, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    const int* prefix_len, int B, int Sq, int Sk, int H, int KVH, int D,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh,
     int causal, int window, float softcap, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH)
     return cudaErrorInvalidValue;
@@ -648,6 +718,7 @@ extern "C" int flash_attention_tc_launch(
   TcParams p{};
   p.o = o;
   p.kv_start = kv_start;
+  p.prefix_len = prefix_len;
   p.o_ss = static_cast<long long>(H) * D;  // o: contiguous [B,Sq,H,D]
   p.o_sb = static_cast<long long>(Sq) * p.o_ss;
   p.Sq = Sq;

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 
 #: Arguments of the two prefill-attention entry points (the same C
 #: signature: pointers, shapes, strides, mask and scale, stream).
-_ATTN = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+_ATTN = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _F, _P]
 
 #: C signature of each entry point, by symbol (all return a cudaError_t).

@@ -2,7 +2,11 @@
 causal=, window=, softcap=, kv_start=)`, the signature of
 `repro.kernels.flash_attention.ops.flash_attention` without its TPU-only
 `block_q` / `block_kv` / `interpret` arguments, plus the per-row
-`kv_start` the engine's left-padded prefill needs.
+`kv_start` the engine's left-padded prefill needs and the per-row
+`prefix_len` of a prefix placed before the pads: a row's valid keys are
+[0, prefix_len) and [kv_start, Sk).  The kernels skip the key tiles of the
+pad gap between the two, and `prefix_len=None` launches exactly what a
+call without it did.
 
 Kernels: `repro_torch/csrc/flash_attention.cu`, which replaces the Pallas
 `_fwd_kernel` (src/repro/kernels/flash_attention/flash_attention.py:38,
@@ -67,17 +71,19 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 def flash_attention(q, k, v, *, scale: Optional[float] = None,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
-                    kv_start: Optional[torch.Tensor] = None
+                    kv_start: Optional[torch.Tensor] = None,
+                    prefix_len: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """q: [B, Sq, H, D]; k/v: [B, Sk, KVH, D] (any batch/seq/head strides,
     unit last-dim stride; in bf16 the bases and strides 16-byte aligned);
-    kv_start: optional [B] first valid key per row.  Returns [B, Sq, H, D]
-    (contiguous) in q's dtype."""
+    kv_start: optional [B] first valid key per row after its pads;
+    prefix_len: optional [B] keys valid before the pads.  Returns
+    [B, Sq, H, D] (contiguous) in q's dtype."""
     global launches, tc_launches
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale=scale, causal=causal,
                              window=window, softcap=softcap,
-                             kv_start=kv_start)
+                             kv_start=kv_start, prefix_len=prefix_len)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if q.device.type != "cuda" or k.device != q.device \
@@ -106,10 +112,13 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     starts = None if kv_start is None else rows_i32(kv_start, b, q.device)
+    prefix = None if prefix_len is None else rows_i32(prefix_len, b,
+                                                      q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     err = _build.load("flash_attention", _ENTRY[kind])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if starts is None else starts.data_ptr(),
+        None if prefix is None else prefix.data_ptr(),
         b, sq, sk, h, kvh, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),

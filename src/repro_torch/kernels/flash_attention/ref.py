@@ -4,9 +4,11 @@ and the oracle its CUDA kernel is held to on the card.
 The arithmetic of `repro.kernels.flash_attention.ref.attention_ref`
 (causal, sliding window, tanh softcap, GQA, fp32 softmax) plus the port's
 per-row `kv_start`: keys before it are invalid (the left-pad prefix of
-`models/flash.py`'s `kv_valid`).  Weights of invalid keys are selected to
-exactly 0, so a query row with no valid key — a left-pad row — is 0,
-finite, as the kernel writes it.
+`models/flash.py`'s `kv_valid`), except the first `prefix_len` keys of a
+row, which stay valid (prefix embeddings placed before the pads: a row's
+valid keys are [0, prefix_len) and [kv_start, Sk)).  Weights of invalid
+keys are selected to exactly 0, so a query row with no valid key — a
+left-pad row — is 0, finite, as the kernel writes it.
 
 `row_scaled_error` is the tolerance measure the kernel is held to on the
 card: each query row (one head's D outputs at one position) against that
@@ -26,9 +28,10 @@ import torch
 def attention_ref(q, k, v, *, scale: Optional[float] = None,
                   causal: bool = True, window: int = 0,
                   softcap: float = 0.0,
-                  kv_start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: [B, Sq, H, D]; k/v: [B, Sk, KVH, D]; kv_start: optional [B] int
-    -> [B, Sq, H, D] in q's dtype."""
+                  kv_start: Optional[torch.Tensor] = None,
+                  prefix_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: [B, Sq, H, D]; k/v: [B, Sk, KVH, D]; kv_start, prefix_len:
+    optional [B] int -> [B, Sq, H, D] in q's dtype."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -48,7 +51,11 @@ def attention_ref(q, k, v, *, scale: Optional[float] = None,
     mask = mask[None].expand(b, sq, sk)
     if kv_start is not None:
         start = kv_start.to(device=q.device, dtype=torch.long)
-        mask = mask & (kpos[None] >= start[:, None, None])
+        valid = kpos[None] >= start[:, None, None]
+        if prefix_len is not None:
+            pre = prefix_len.to(device=q.device, dtype=torch.long)
+            valid = valid | (kpos[None] < pre[:, None, None])
+        mask = mask & valid
     mask = mask[:, None, None]                      # [B, 1, 1, Sq, Sk]
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.where(mask, torch.softmax(s, dim=-1), torch.zeros_like(s))

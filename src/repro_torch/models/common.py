@@ -367,12 +367,15 @@ def cached_attention(params: Params, spec: AttnSpec, x: Tensor,
 def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
                        cache: Params, ring: bool = False,
                        pad_mask: Optional[Tensor] = None,
-                       pos_offset: Optional[int] = None
-                       ) -> Tuple[Tensor, Params]:
+                       pos_offset: Optional[int] = None,
+                       prefix_len: int = 0) -> Tuple[Tensor, Params]:
     """Prefill: write S prompt tokens into the cache (in place, at
     `pos_offset`), return the attention output [B, S, D].  `pad_mask`
     ([B, S] bool, True = real token) masks left-pad slots out of the keys
-    so ragged batches match their unpadded logits.  `pos_offset` shifts
+    so ragged batches match their unpadded logits.  `prefix_len` slots at
+    the front of the sequence (prefix embeddings, always valid) may sit
+    before the pads: the kernel route then takes each row's valid keys as
+    [0, prefix_len) and [prefix_len + pads, S).  `pos_offset` shifts
     the prompt to global positions [pos_offset, pos_offset + S) for RoPE
     and the cache write; attention itself is over the prompt alone, so the
     attention's query offset stays 0.
@@ -402,16 +405,25 @@ def prefill_into_cache(params: Params, spec: AttnSpec, x: Tensor,
         for name, new in _cache_entries(cache, k, v).items():
             cache[name][:, off:off + s] = new
     if spec.attn_impl == "flash":
-        kv_start = None if pad_mask is None else kv_start_of(pad_mask)
+        kv_start = prefix = None
+        if pad_mask is not None:
+            # The prefix slots of the mask are True, so the pad count is
+            # the count of False.
+            kv_start = kv_start_of(pad_mask) + prefix_len
+            if prefix_len:
+                prefix = torch.full((b,), prefix_len, dtype=torch.int32,
+                                    device=x.device)
         ctx = flash_attention(q, k, v, scale=spec.query_scale, causal=True,
                               window=spec.sliding_window,
-                              softcap=spec.logit_softcap, kv_start=kv_start)
-        if pad_mask is not None:
+                              softcap=spec.logit_softcap, kv_start=kv_start,
+                              prefix_len=prefix)
+        if pad_mask is not None and not prefix_len:
             # A left-pad query row has no valid key: the kernel writes 0,
             # the reference (naive and models/flash.py alike) the mean of
             # the S values.  Attention never reads such a row, but an MoE
             # FFN routes it and it takes expert capacity, so the port
-            # gives it the reference's value.
+            # gives it the reference's value.  (Behind a prefix every row
+            # sees the prefix's keys, as in the reference.)
             g = spec.n_heads // spec.n_kv_heads
             vmean = v.float().mean(dim=1).repeat_interleave(g, dim=1)
             ctx = torch.where(pad_mask[:, :, None, None], ctx,

@@ -360,15 +360,12 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: Tensor,
     [pos_offset, pos_offset + S) in RoPE and the cache writes.
     Returns (logits for the last position [B, V], cache).
 
-    The kernels take a row's valid keys as one window [kv_start, end), so
-    under `attn_impl == "flash"` a prefix cannot sit before left pads:
-    a prefix with a pad mask needs the naive path."""
+    Under `attn_impl == "flash"` a prefix before left pads reaches the
+    kernels as `prefix_len`: a row's valid keys are the P prefix slots and
+    the real tokens after its pads."""
     x = _embed(cfg, params, tokens, prefix_embeddings)
+    p = 0
     if prefix_embeddings is not None and attn_mask is not None:
-        if cfg.attn_impl == "flash":
-            raise ValueError("prefill: prefix_embeddings with an attn_mask "
-                             "need attn_impl='naive' (the kernels take one "
-                             "valid window a row)")
         p = prefix_embeddings.shape[1]
         attn_mask = torch.cat([torch.ones((x.shape[0], p), dtype=torch.bool,
                                           device=x.device), attn_mask], dim=1)
@@ -377,7 +374,7 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: Tensor,
         def attend(h, lp=lp, lspec=lspec, c=c, ring=ring):
             return common.prefill_into_cache(
                 lp["attn"], lspec, h, c, ring=ring, pad_mask=attn_mask,
-                pos_offset=pos_offset)[0]
+                pos_offset=pos_offset, prefix_len=p)[0]
         x, _ = _block(cfg, lp, x, attend)
     return _head(cfg, params, x[:, -1:])[:, 0], cache
 

@@ -1,20 +1,31 @@
 """Environment registry of the port: construct a Camel backend by name.
 
-Names follow ``<platform>/<model>/<scenario>``; this slice has one
-backend, the real PyTorch engine:
+Names follow ``<platform>/<model>/<scenario>``:
 
+    jetson/llama3.2-1b/landscape  closed-form Jetson landscape + noise
+                                  (the modelled Jetson AGX Orin)
+    jetson/qwen2.5-3b/events      event-driven simulation per pull
     engine/llama3.2-1b            real InferenceEngine (scenario "live"
                                   implied; "engine/<arch>/live" also ok)
 
+plus the composite fleet form ``fleet/<n>x<platform>/<model>/<scenario>``
+(e.g. ``fleet/4xjetson/llama3.2-1b/landscape``): N devices of the named
+backend behind one shared arrival queue (`repro_torch.platform.fleet`).
+
 `make_env` returns the environment, `make_space` the matching ArmSpace,
 `pull_many` evaluates a batch of knob dicts (slot i is logical round
-``round_index + i``).  New backends register with
-``register_env(platform, scenario)``.  The Jetson/TPU simulators and
-fleets of `repro.platform.registry` are not ported yet.
+``round_index + i``); `open_dispatcher` / `pull_async` are the
+asynchronous counterparts through `platform.base.AsyncDispatcher`, whose
+results return in finish order.  Constructors take keyword overrides
+(noise=, seed=, arrival_rate=, device=, ...) that pass straight to the
+environment's constructor.  New backends register with
+``register_env(platform, scenario)``.  The reference's TPU backends are
+not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, List, Sequence, Tuple
 
 from repro_torch.core.arms import paper_arm_space
@@ -31,6 +42,8 @@ _MODELS: Dict[str, Callable[[], Sequence[str]]] = {}
 
 #: Platforms whose names may omit the scenario ("engine/<arch>").
 _DEFAULT_SCENARIO = {"engine": "live"}
+
+_FLEET_SPEC = re.compile(r"^(\d+)x(.+)$")
 
 
 def register_env(platform: str, scenario: str, space: Callable = None,
@@ -49,6 +62,14 @@ def register_env(platform: str, scenario: str, space: Callable = None,
 
 def parse_name(name: str) -> Tuple[str, str, str]:
     parts = name.split("/")
+    if parts and parts[0] == "fleet":
+        if len(parts) != 4 or not _FLEET_SPEC.match(parts[1]):
+            raise KeyError(
+                f"fleet environment name must be "
+                f"'fleet/<n>x<platform>/<model>/<scenario>' "
+                f"(e.g. 'fleet/4xjetson/llama3.2-1b/landscape'), got "
+                f"{name!r}")
+        return f"fleet/{parts[1]}", parts[2], parts[3]
     if len(parts) == 2:
         platform, model = parts
         scenario = _DEFAULT_SCENARIO.get(platform)
@@ -61,8 +82,23 @@ def parse_name(name: str) -> Tuple[str, str, str]:
         platform, model, scenario = parts
     else:
         raise KeyError(f"environment name must be "
-                       f"'<platform>/<model>/<scenario>', got {name!r}")
+                       f"'<platform>/<model>/<scenario>' or "
+                       f"'fleet/<n>x<platform>/<model>/<scenario>', "
+                       f"got {name!r}")
     return platform, model, scenario
+
+
+def _fleet_spec(platform: str) -> Tuple[int, str]:
+    """'fleet/<n>x<base>' -> (n, base)."""
+    m = _FLEET_SPEC.match(platform[len("fleet/"):])
+    return int(m.group(1)), m.group(2)
+
+
+def _models_of(platform: str) -> List[str]:
+    fn = _MODELS.get(platform)
+    if fn is None:
+        return ["<model>"]
+    return sorted(fn())
 
 
 def _check_model(platform: str, model: str) -> None:
@@ -72,21 +108,41 @@ def _check_model(platform: str, model: str) -> None:
                        f"available: {sorted(fn())}")
 
 
-def make_env(name: str, **overrides):
-    """Construct the environment `name` with constructor overrides."""
+def _builder(name: str) -> Tuple[Callable, str, Tuple[str, str]]:
     platform, model, scenario = parse_name(name)
+    if platform.startswith("fleet/"):
+        n, base = _fleet_spec(platform)
+        if (base, scenario) not in _BUILDERS:
+            raise KeyError(f"no environment {base!r}/{scenario!r} to build "
+                           f"a fleet from; available: {available_envs()}")
+        _check_model(base, model)
+
+        def fleet_builder(model, **kw):
+            from repro_torch.platform.fleet import make_fleet
+            return make_fleet(n, base, model, scenario, **kw)
+
+        return fleet_builder, model, (base, scenario)
     try:
         builder = _BUILDERS[(platform, scenario)]
     except KeyError:
         raise KeyError(f"no environment {platform!r}/{scenario!r}; "
                        f"available: {available_envs()}") from None
     _check_model(platform, model)
+    return builder, model, (platform, scenario)
+
+
+def make_env(name: str, **overrides):
+    """Construct the environment `name` with constructor overrides."""
+    builder, model, _ = _builder(name)
     return builder(model, **overrides)
 
 
 def make_space(name: str, **overrides):
-    """The ArmSpace matching environment `name`."""
+    """The ArmSpace matching environment `name` (fleet names use the base
+    platform's space: all devices share one grid)."""
     platform, _, scenario = parse_name(name)
+    if platform.startswith("fleet/"):
+        _, platform = _fleet_spec(platform)
     try:
         builder = _SPACES[(platform, scenario)]
     except KeyError:
@@ -96,10 +152,11 @@ def make_space(name: str, **overrides):
 
 
 def available_envs() -> Tuple[str, ...]:
+    """All constructible names (fleets compose on top of any of these:
+    'fleet/<n>x' + name)."""
     names = []
     for (p, s) in _BUILDERS:
-        fn = _MODELS.get(p)
-        for m in (sorted(fn()) if fn is not None else ["<model>"]):
+        for m in _models_of(p):
             names.append(f"{p}/{m}/{s}")
     return tuple(sorted(names))
 
@@ -116,10 +173,71 @@ def pull_many(env, knobs_list: Sequence[dict], round_index: int = 0
             for i, k in enumerate(knobs_list)]
 
 
+def open_dispatcher(env, n_workers: int = None):
+    """Open the asynchronous completion-queue path onto `env`: the
+    environment's own `open_dispatch()` hook when it defines one, else the
+    simulated event-clock `AsyncDispatcher` with one worker per fleet
+    device (one for a plain environment)."""
+    from repro_torch.platform.base import AsyncDispatcher
+
+    fn = getattr(env, "open_dispatch", None)
+    if fn is not None:
+        return fn() if n_workers is None else fn(n_workers=n_workers)
+    return AsyncDispatcher(env, n_workers=n_workers)
+
+
+def pull_async(env, knobs_list: Sequence[dict], round_index: int = 0,
+               n_workers: int = None) -> List:
+    """Asynchronous counterpart of `pull_many`: evaluate the batch through
+    the completion queue and return `Completion`s in finish order (ties in
+    submission order).  Slot i is still logical round
+    ``round_index + i``: the delay path changes when an observation
+    arrives, never what it observed."""
+    disp = open_dispatcher(env, n_workers=n_workers)
+    for i, knobs in enumerate(knobs_list):
+        disp.submit(knobs, round_index + i)
+    out = []
+    while disp.in_flight:
+        out.extend(disp.pop_wave())
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Built-in backend (imports deferred so `import repro_torch.platform` stays
-# light; the model and engine load only when the backend is built)
+# Built-in backends (imports deferred so `import repro_torch.platform` stays
+# light; the simulators, model and engine load only when a backend is built)
 # ---------------------------------------------------------------------------
+
+
+def _jetson_models() -> List[str]:
+    from repro_torch.serving import energy
+    return list(energy.ORIN_WORKLOADS)
+
+
+def _orin_workload(model: str):
+    from repro_torch.serving import energy
+    try:
+        return energy.JETSON_AGX_ORIN, energy.ORIN_WORKLOADS[model]
+    except KeyError:
+        raise KeyError(f"unknown jetson model {model!r}; "
+                       f"have {sorted(energy.ORIN_WORKLOADS)}") from None
+
+
+@register_env("jetson", "landscape", space=paper_arm_space,
+              models=_jetson_models)
+def _jetson_landscape(model: str, **kw):
+    """The modelled Orin landscape; `device=` is where its batched pulls
+    evaluate (CUDA unless given)."""
+    from repro_torch.serving import simulator
+    board, work = _orin_workload(model)
+    return simulator.LandscapeEnv(board, work, **kw)
+
+
+@register_env("jetson", "events", space=paper_arm_space,
+              models=_jetson_models)
+def _jetson_events(model: str, **kw):
+    from repro_torch.serving import simulator
+    board, work = _orin_workload(model)
+    return simulator.EventEnvironment(board, work, **kw)
 
 
 def _config_archs() -> List[str]:

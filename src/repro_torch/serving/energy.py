@@ -1,7 +1,9 @@
-"""Analytical DVFS board and workload models — a copy of the parts of
-`repro.serving.energy` that the engine environment uses: the Jetson AGX
-Orin board (`DVFSBoard`, paper Eq. 2 power) and the per-model workload
-fits (`WorkloadModel`, Eq. 3 frequency scaling and utilization).
+"""Analytical DVFS board and workload models — a copy of the Jetson half
+of `repro.serving.energy`: the Jetson AGX Orin board (`DVFSBoard`, paper
+Eq. 2 power), the per-model workload fits (`WorkloadModel`, Eq. 3
+frequency scaling and utilization), and the per-arm energy (Eq. 5),
+latency (Eq. 7 plus saturation backlog) and landscape (Fig. 1) the
+simulators and the search read.  The TPU half is not ported (ROADMAP.md).
 
 Energy on the engine path is this *Orin analytical model* applied to
 measured wall time: on an H100 it is a modelled figure, not a
@@ -11,7 +13,11 @@ measurement of the card's power.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.platform.telemetry import queueing_latency
 
 @dataclasses.dataclass(frozen=True)
 class DVFSBoard:
@@ -80,6 +86,39 @@ class WorkloadModel:
 # ---------------------------------------------------------------------------
 # Energy / latency per (frequency level, batch) arm
 # ---------------------------------------------------------------------------
+
+
+def energy_per_request(board: DVFSBoard, work: WorkloadModel, level: int,
+                       batch: int, work_scale: float = 1.0) -> float:
+    """Eq. 5: E_request = P_total * t_batch / b."""
+    p = board.power(level, work.utilization(batch))
+    tb = work.batch_time(board, level, batch, work_scale)
+    return p * tb / batch
+
+
+def mean_latency(board: DVFSBoard, work: WorkloadModel, level: int,
+                 batch: int, arrival_rate: float, n_requests: int,
+                 work_scale: float = 1.0) -> float:
+    """Eq. 7 + saturation backlog over a finite horizon (the shared model
+    of platform.telemetry)."""
+    tb = work.batch_time(board, level, batch, work_scale)
+    return queueing_latency(tb, batch, arrival_rate, n_requests).total
+
+
+def landscape(board: DVFSBoard, work: WorkloadModel,
+              batch_sizes: Sequence[int], arrival_rate: float = 1.0,
+              n_requests: int = 2500, work_scale: float = 1.0,
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """(E, L) arrays of shape [n_levels, n_batches] — the paper's Fig. 1."""
+    nl, nb = board.n_levels, len(batch_sizes)
+    E = np.zeros((nl, nb))
+    L = np.zeros((nl, nb))
+    for i in range(nl):
+        for j, b in enumerate(batch_sizes):
+            E[i, j] = energy_per_request(board, work, i, int(b), work_scale)
+            L[i, j] = mean_latency(board, work, i, int(b), arrival_rate,
+                                   n_requests, work_scale)
+    return E, L
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,11 @@ from repro.core import arms as jax_arms
 from repro.core import bandit as jax_bandit
 from repro.core import baselines as jax_baselines
 from repro.core import controller as jax_controller
+from repro.core import priors as jax_priors
 from repro.core.cost import CostModel as JaxCostModel
 from repro.platform.telemetry import observe as jax_observe
 from repro.serving import energy as jax_energy
-from repro_torch.core import arms, bandit, baselines, controller
+from repro_torch.core import arms, bandit, baselines, controller, priors
 from repro_torch.core.cost import CostModel
 from repro_torch.platform.telemetry import observe
 from repro_torch.serving import energy
@@ -155,7 +156,7 @@ def test_controller_runs_the_camel_loop():
         _Landscape(space, observe), 3, pull_budget=10)
     assert len(batch.records) == 10 and batch.n_rounds == 3
     with pytest.raises(KeyError, match="unknown policy"):
-        baselines.make_policy("grid")
+        baselines.make_policy("annealing")
 
 
 def test_copied_modules_match_reference():
@@ -173,6 +174,14 @@ def test_copied_modules_match_reference():
         (jo.energy, jo.latency, jo.queue_wait)
     cm, jcm = CostModel(0.3, 2.0, 3.0), JaxCostModel(0.3, 2.0, 3.0)
     assert cm.cost(1.5, 2.5) == jcm.cost(1.5, 2.5)
+    # core/priors.py: the analytic prior of both Orin workloads.
+    for model in ("llama3.2-1b", "qwen2.5-3b"):
+        for alpha in (0.5, 0.3):
+            _, mu0, sig0 = priors.jetson_camel_policy(model, space, alpha)
+            _, jmu0, jsig0 = jax_priors.jetson_camel_policy(
+                model, jax_arms.paper_arm_space(), alpha)
+            np.testing.assert_array_equal(mu0, jmu0)
+            np.testing.assert_array_equal(sig0, jsig0)
 
 
 def test_serve_engine_mode_prints_the_reference_summary():
@@ -210,7 +219,12 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files.extend(sorted((REPO / "scripts").glob("*.py")))
     assert len(files) > 20
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    for mod in ("core/priors.py", "platform/fleet.py",
+                "serving/simulator.py", "launch/serve.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

@@ -288,6 +288,53 @@ def test_flash_attention_at_the_family_heads(rnd, heads, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("seq", [16 + 15 + 17, 16 + 300 + 200])
+def test_flash_attention_with_a_prefix_before_pads(rnd, dtype, seq):
+    """phi-3-vision's heads (32 x 96) with a 16-slot prefix before left
+    pads of 0, 5 and 15 slots (and 300 at the longer length, whose gap
+    spans whole key tiles that the kernel skips): a row's valid keys are
+    [0, 16) and [16 + pads, S).  Held row by row to tol times each row's
+    max |ref|; the same call without `prefix_len` gives another result."""
+    dt, tol = DTYPES[dtype]
+    pads = [0, 5, 15] + ([300] if seq > 100 else [])
+    b = len(pads)
+    q, k, v = rnd((b, seq, 32, 96), dt), rnd((b, seq, 32, 96), dt), \
+        rnd((b, seq, 32, 96), dt)
+    prefix, starts = _i32([16] * b), _i32([16 + p for p in pads])
+    before = fl_ops.launches
+    out = fl_ops.flash_attention(q, k, v, kv_start=starts, prefix_len=prefix)
+    assert fl_ops.launches == before + 1
+    ref = fl_ops.attention_ref(q, k, v, kv_start=starts, prefix_len=prefix)
+    assert bool(torch.isfinite(out).all())
+    assert row_scaled_error(out, ref) <= tol
+    assert row_scaled_error(fl_ops.flash_attention(q, k, v, kv_start=starts),
+                            ref) > tol
+
+
+@pytest.mark.requires_cuda
+def test_landscape_pull_many_on_the_card_is_the_cpu_path():
+    """The Orin landscape's batched pull evaluated on the card gives the
+    CPU path's observations (fp32 closed form on both: the same arms'
+    values within 1e-6 relative, the same noise stream and metadata)."""
+    from repro_torch.platform import make_env, make_space
+    if not torch.cuda.is_available():
+        pytest.skip(CUDA_MISSING_REASON)
+    for model in ("llama3.2-1b", "qwen2.5-3b"):
+        name = f"jetson/{model}/landscape"
+        space = make_space(name)
+        knobs = [space.values(a) for a in range(space.n_arms)]
+        card = make_env(name, seed=1, device="cuda").pull_many(knobs, 0)
+        cpu = make_env(name, seed=1, device="cpu").pull_many(knobs, 0)
+        for o, c in zip(card, cpu, strict=True):
+            for f in ("energy", "latency", "batch_time", "queue_wait",
+                      "backlog", "power"):
+                np.testing.assert_allclose(getattr(o, f), getattr(c, f),
+                                           rtol=1e-6, err_msg=f)
+            assert o.metadata == c.metadata
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("case", [
     # (dtype, B, S, window, kv_start)
     ("bfloat16", 28, 16, 4096, "pads"),

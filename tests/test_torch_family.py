@@ -505,14 +505,18 @@ def test_prefix_embeddings_match_jax(attn_impl):
 
 
 def test_prefix_embeddings_with_a_pad_mask():
-    """A prefix before left-padded prompts: the naive path matches the
-    reference (prefix slots always valid); the kernels' path, which takes
-    one valid window a row, refuses it by name."""
+    """A prefix before left-padded prompts, the prefix slots always valid:
+    the naive path matches the reference's naive output, and the kernels'
+    path (attn_impl="flash", a row's valid keys [0, P) and [P + pads, S)
+    through the plain version's `prefix_len`) the reference's flash output
+    (models/flash.py with the prefix-extended `kv_valid`), at 1e-4 in
+    fp32."""
     jb, jparams, tb, tparams = _models("phi-3-vision-4.2b", "naive")
     p = jb.cfg.num_prefix_embeddings
     prefix = (0.02 * np.random.default_rng(10).standard_normal(
         (3, p, 64))).astype(np.float32)
     toks, mask = _ragged_batch()
+    assert not mask.all(axis=1).all()          # some rows have pads
     jl, _ = _reference("phi-3-vision-4.2b")[2][1](jparams, jnp.asarray(toks),
                            jb.init_cache(3, MAX_LEN),
                            prefix_embeddings=jnp.asarray(prefix),
@@ -520,11 +524,16 @@ def test_prefix_embeddings_with_a_pad_mask():
     tl, _ = tb.prefill(tparams, _t(toks), tb.init_cache(3, MAX_LEN, "cpu"),
                        prefix_embeddings=_t(prefix), attn_mask=_t(mask))
     _close(tl, jl)
+    jflash = jax_bundle_for(dataclasses.replace(jb.cfg, attn_impl="flash"))
+    jfl, _ = jax.jit(jflash.prefill)(jparams, jnp.asarray(toks),
+                                     jflash.init_cache(3, MAX_LEN),
+                                     prefix_embeddings=jnp.asarray(prefix),
+                                     attn_mask=jnp.asarray(mask))
     flash_b = bundle_for(dataclasses.replace(tb.cfg, attn_impl="flash"))
-    with pytest.raises(ValueError, match="prefix_embeddings"):
-        flash_b.prefill(tparams, _t(toks), flash_b.init_cache(3, MAX_LEN,
-                                                              "cpu"),
-                        prefix_embeddings=_t(prefix), attn_mask=_t(mask))
+    tfl, _ = flash_b.prefill(tparams, _t(toks),
+                             flash_b.init_cache(3, MAX_LEN, "cpu"),
+                             prefix_embeddings=_t(prefix), attn_mask=_t(mask))
+    _close(tfl, jfl)
 
 
 # ---------------------------------------------------------------------------
