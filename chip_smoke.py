@@ -186,7 +186,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      staleness 0, the posterior equal to the records' costs chained
      through `update`, and the controller's host time a round (select +
      update, pulls excluded).  Its seconds are printed (`phase 9
-     seconds=`).
+     seconds=`);
+ 10. fault injection (`repro_torch.faults`): (a) E14's claims with the
+     4-device fleet's landscape on the card (the reference's constants:
+     K 4, 64 pulls, seeds 0-2, the retry and the censored chaos specs,
+     5 % commit tolerance), each run equal to the same run on the CPU
+     record by record: the zero plan and an idle armed plan bit-identical
+     to the bare run, the chaos runs on their exact budget (the 5 %
+     commit bound printed a cell, not failed on: a claim about the
+     reference's random stream), a hung device timed out and
+     quarantined; (b) on
+     llama3.2-1b's full-width engine (28 slots, its graph), E13's Poisson
+     workload bare, under a zero plan (bit-identical) and under
+     CANCEL_SPEC: some but not all requests cancelled, each within a
+     scheduler iteration (MAX_BATCH admissions + a chunk) of its
+     deadline, and the kernel executions of the three runs exact, refills
+     included; (c) the same plan on llama3.2-1b-smoke in fp32, card
+     against CPU, streams and records equal; (d) a `FlakySensor` around
+     NVML (SENSOR_SPEC) over one metered continuous pull: its injected
+     faults are the `Measurement`'s sample errors, the pull's power and
+     energy finite; (e) `serve.py --mode engine --faults` on the card
+     prints the engine mode's keys and `faults` (`phase 10 seconds=`);
+ 11. the encoder-decoder (`models/encdec.py`) after every path's
+     weights are freed: the narrow fp32 seamless-smoke card against CPU
+     (1e-4) and decode against forward (2e-3); then seamless-m4t-large-v2
+     as published (24 + 24 layers, d_model 1024, 16 x 64 heads, d_ff 8192
+     ReLU, vocab 256206, tied; 1.37 B parameters, bf16, seeded random
+     weights) at b 4 x 512 speech frames (the AudioStub's default) and
+     b 1 x 4096 (max_source_len), 16 greedy tokens: encode, prefill and
+     decode-step ms (eager, and one CUDA graph replay a step, tokens
+     equal; a profiled window of replays: kernels a step, busy share, the
+     top kernels), the step's byte floor, peak memory, decode against the
+     teacher-forced forward within ENCDEC_BF16_TOL of its largest logit,
+     and no kernel launched (naive attention, as in the reference).
 
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the four
@@ -2367,6 +2399,583 @@ def controllers_on_engine(torch, rt, ops, engine, cfg, arch, prompt_len):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: fault injection on the card
+# ---------------------------------------------------------------------------
+
+#: E14's constants (the reference's benchmarks/resilience.py:50-58): the
+#: 4-device Jetson fleet, K, the exact pull budget, the seeds, the commit
+#: tolerance against the fault-free commit and the two chaos specs (20 %
+#: failed attempts absorbed by retries; 35 % with no retry, so failures
+#: surface as censored `FailedPull`s), device 0 crashing at round 4.
+E14_FLEET = "fleet/4xjetson/llama3.2-1b/landscape"
+E14_K, E14_PULLS, E14_SEEDS, E14_TOL = 4, 64, (0, 1, 2), 0.05
+CHAOS_SPEC = "pull_fail=0.2,crash=0@4,deadline=4,retries=3,seed=1"
+CENSORED_SPEC = "pull_fail=0.35,crash=0@4,deadline=4,retries=1,seed=1"
+#: A plan that arms the resilient dispatcher (a deadline, retries) and
+#: never fires.
+IDLE_SPEC = "deadline=1e9,retries=3"
+#: 10(b)-(c): clients abandon a quarter of the requests 4 step units
+#: after arrival.  10(d): the sensor drops 10 % of its reads and reads NaN
+#: on 5 %.  10(e): both through `serve.py --faults`.
+CANCEL_SPEC = "cancel=0.25@4.0,seed=1"
+SENSOR_SPEC = "sensor_drop=0.1,sensor_nan=0.05,seed=1"
+SERVE_FAULTS = "cancel=0.25@4.0,sensor_drop=0.1,sensor_nan=0.05,seed=1"
+FAULT_COUNTERS = ("faults_injected_total", "retries_total",
+                  "pull_faults_total", "device_faults_total")
+
+
+def e14_setup(seed, device, factors=None):
+    """E14's fleet on `device`: the environment's kwargs, the space, the
+    cost model referenced at the (max f, max b) corner, the landscape's
+    optimal cost and Camel's analytic prior."""
+    from repro_torch.core import controller, cost, priors
+    from repro_torch.platform import make_env, make_space
+    kw = dict(noise=0.03, seed=seed, device=device)
+    if factors is not None:
+        kw["dispatch_factors"] = factors
+    env = make_env(E14_FLEET, **kw)
+    space = make_space(E14_FLEET)
+    e_ref, l_ref = env.expected(space.values(space.corner()))
+    cm = cost.CostModel(alpha=0.5).with_reference(e_ref, l_ref)
+    _, opt_cost = controller.landscape_optimal(space, env.expected, cm)
+    _, mu0, sig0 = priors.jetson_camel_policy("llama3.2-1b", space)
+    return argparse.Namespace(kw=kw, env=env, space=space, cm=cm,
+                              opt_cost=opt_cost, mu0=mu0, sig0=sig0)
+
+
+def e14_run(setup, seed, spec=None, sink=None):
+    """One AsyncController run on a fresh fleet, wrapped in `spec`'s plan
+    (`wrap_env`) where one is given, inside an observing session (`sink`
+    gets its trace).  Returns (result, the session's fault counters)."""
+    from repro_torch import faults, obs
+    from repro_torch.core import baselines, controller
+    from repro_torch.platform import make_env
+    env = make_env(E14_FLEET, **setup.kw)
+    if spec is not None:
+        env = faults.wrap_env(env, faults.parse_faults(spec))
+    policy = baselines.make_policy("camel", prior_mu=setup.mu0,
+                                   prior_sigma=setup.sig0)
+    with obs.observing(sink) as sess:
+        res = controller.AsyncController(
+            setup.space, policy, setup.cm, optimal_cost=setup.opt_cost,
+            seed=seed, k=E14_K).run(env, -(-E14_PULLS // E14_K),
+                                    pull_budget=E14_PULLS)
+    return res, {n: sess.metrics.counter(n).value for n in FAULT_COUNTERS}
+
+
+def e14_stream(res):
+    """A run's records as the reference's E14 compares them, bit for
+    bit."""
+    return [(r.t, r.arm, r.cost, r.energy, r.latency,
+             r.obs.metadata["device"], r.obs.metadata["staleness"],
+             r.obs.metadata["finished_at"]) for r in res.records]
+
+
+def e14_on_card():
+    """10(a): E14's claims with the fleet's landscape evaluated on the
+    card, each run held to the same run on the CPU record by record (and
+    its failed pulls and fault counters).  Seeds 0-2: the bare run, the
+    zero plan and the idle armed plan bit-identical; the retry and the
+    censored chaos runs spend the exact budget with faults injected
+    (censored `FailedPull`s in the second).  Seed 0: a hung device (an
+    infinite dispatch factor) times out on device 0, is quarantined and
+    serves no record.
+
+    The commit bound (chaos within E14_TOL of the clean commit's cost) is
+    printed a cell and counted, not failed on: it is a claim about the
+    reference's Thompson draws at these seeds (a `jax.random` stream),
+    and the port draws from a torch generator, so its commits differ by
+    design; on the port's stream seed 2's retry cell misses it (ROADMAP
+    Queue 3, PERF.md §6).  Everything it depends on is held: the
+    dispatcher and injectors give the reference's records under the
+    deterministic grid policy (tests/test_torch_faults.py), and every run
+    here equals its CPU run."""
+    import dataclasses
+    import io
+    from repro_torch import faults
+    if not faults.FaultPlan().is_zero or faults.parse_faults(
+            IDLE_SPEC).is_zero:
+        fail("the zero and idle plans are not what E14 needs")
+    bound_met = []
+    for seed in E14_SEEDS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            setup = e14_setup(seed, device)
+            bare, _ = e14_run(setup, seed)
+            for spec in ("none", IDLE_SPEC):
+                other, _ = e14_run(setup, seed, spec)
+                if e14_stream(other) != e14_stream(bare):
+                    fail(f"E14 seed {seed} on {device}: the plan {spec!r} "
+                         "perturbed the run")
+
+            def commit_cost(arm, setup=setup):
+                return float(setup.cm.cost(*setup.env.expected(
+                    setup.space.values(arm))))
+            c_clean = commit_cost(bare.best_arm)
+            runs[device] = [("clean", bare, None)]
+            for label, spec in (("retry", CHAOS_SPEC),
+                                ("censored", CENSORED_SPEC)):
+                res, counters = e14_run(setup, seed, spec)
+                n_failed = len(res.failed_pulls)
+                excess = commit_cost(res.best_arm) / c_clean - 1.0
+                if counters["faults_injected_total"] <= 0 or \
+                        len(res.records) + n_failed != E14_PULLS or \
+                        (label == "censored" and not n_failed):
+                    fail(f"E14 seed {seed} {label} on {device}: injected "
+                         f"{counters['faults_injected_total']}, "
+                         f"{len(res.records)} ok + {n_failed} failed of "
+                         f"{E14_PULLS}")
+                runs[device].append((label, res, counters))
+                if device == "cuda":
+                    bound_met.append(excess <= E14_TOL)
+                    say(f"e14 chaos seed={seed} {label} on the card: "
+                        f"injected={counters['faults_injected_total']} "
+                        f"retries={counters['retries_total']} "
+                        f"pull_faults={counters['pull_faults_total']} "
+                        f"ok_pulls={len(res.records)} failed_pulls="
+                        f"{n_failed} budget={E14_PULLS} clean_commit_cost="
+                        f"{c_clean:.6f} chaos_commit_cost="
+                        f"{commit_cost(res.best_arm):.6f} excess="
+                        f"{excess:.6f} within_tol={excess <= E14_TOL} "
+                        f"(tol {E14_TOL})")
+        for (label, card, cc), (_, cpu, pc) in zip(runs["cuda"],
+                                                   runs["cpu"]):
+            _same_records(f"E14 seed {seed} {label} card vs cpu", card, cpu,
+                          devices=True)
+            failed = [[dataclasses.astuple(f) for f in r.failed_pulls]
+                      for r in (card, cpu)]
+            if cc != pc or failed[0] != failed[1]:
+                fail(f"E14 seed {seed} {label}: counters {cc} and failed "
+                     f"pulls against {pc} and the CPU's")
+        say(f"e14 seed={seed}: zero and idle plans == bare bit for bit; "
+            f"clean, retry and censored runs card == cpu record by record")
+    say(f"e14 commit bound (chaos within {E14_TOL} of the clean commit) "
+        f"met in {sum(bound_met)} of {len(bound_met)} cells on the port's "
+        f"Thompson stream")
+    hung = {}
+    for device in ("cuda", "cpu"):
+        setup = e14_setup(0, device, factors=(float("inf"), 1.0, 1.0, 1.0))
+        sink = io.StringIO()
+        res, _ = e14_run(setup, 0, "deadline=4,retries=3", sink=sink)
+        rows = [json.loads(line) for line in sink.getvalue().splitlines()]
+        timeouts = [r for r in rows if r["name"] == "fault.pull"
+                    and r["attrs"].get("reason") == "timeout"]
+        quarantined = [r["attrs"]["worker"] for r in rows
+                       if r["name"] == "fault.device"]
+        served = sorted({r.obs.metadata["device"] for r in res.records})
+        if len(res.records) + len(res.failed_pulls) != E14_PULLS or \
+                not timeouts or any(t["attrs"]["worker"] != 0
+                                    for t in timeouts) or \
+                quarantined[:1] != [0] or 0 in served:
+            fail(f"E14 hung device on {device}: {len(res.records)} ok, "
+                 f"{len(timeouts)} timeouts, quarantined {quarantined}, "
+                 f"served by {served}")
+        hung[device] = res
+        if device == "cuda":
+            say(f"e14 hung device 0 on the card: ok_pulls="
+                f"{len(res.records)}/{E14_PULLS} timeouts={len(timeouts)} "
+                f"quarantined={quarantined} devices_served={served}")
+    _same_records("E14 hung device card vs cpu", hung["cuda"], hung["cpu"],
+                  devices=True)
+
+
+def cancel_full_width(torch, rt, ops, engine, cfg, prompt_len):
+    """10(b) on a path's full-width engine (MAX_BATCH slots, the graph
+    phase 4 captured): E13's Poisson workload with `step_time_s=1`, bare,
+    through a zero plan and under CANCEL_SPEC.  The zero plan's streams
+    and records equal the bare run's bit for bit; the cancel plan cancels
+    some requests but not all, each no later than the next chunk
+    boundary after its deadline (deadlines are checked between chunks,
+    and one scheduler iteration is at most MAX_BATCH admissions and
+    CONT_CHUNK steps); the kernel executions of the three runs equal
+    their prefills (seeds and one-row admissions, the refills of
+    cancelled slots included) times a prefill's launches plus their
+    decode steps times a step's.  Returns the counts."""
+    import numpy as np
+    from repro_torch import faults
+    arch = cfg.name
+    reqs = poisson_workload(rt, cfg, prompt_len,
+                            CONT_GROUPS.get(arch, 2) * MAX_BATCH)
+    stamped = faults.apply_request_faults(reqs,
+                                          faults.parse_faults(CANCEL_SPEC))
+    kw = dict(n_slots=MAX_BATCH, chunk=CONT_CHUNK, step_time_s=1.0)
+    runs = {}
+
+    def run():
+        for label, batch in (("bare", reqs), ("zero", faults
+                                              .apply_request_faults(
+                                                  reqs, faults.FaultPlan())),
+                             ("cancel", stamped)):
+            t0 = time.monotonic()
+            out, st = engine.generate_continuous(batch, **kw)
+            runs[label] = (out, st, time.monotonic() - t0)
+
+    counts, _ = counted_run(torch, ops, engine, run)
+    prefills = sum(st.prefill_calls for _, st, _ in runs.values())
+    steps = sum(st.decode_steps for _, st, _ in runs.values())
+    expected = expected_launches(engine.bundle.family, cfg, prefills,
+                                 prompt_len, steps)
+    say(f"launch counts cancel {arch} over {prefills} prefills and {steps} "
+        f"decode steps (bare, zero plan, {CANCEL_SPEC}): {counts} "
+        f"expected {expected}")
+    if counts != expected:
+        fail(f"{arch}: launch counts under cancellation {counts} != "
+             f"expected {expected}")
+
+    def records(st):
+        return [(r.rid, r.slot, r.admit_s, r.finish_s, r.cancelled, r.tokens)
+                for r in st.records]
+    (b_out, b_st, _), (z_out, z_st, _) = runs["bare"], runs["zero"]
+    if b_out.keys() != z_out.keys() or any(
+            not np.array_equal(b_out[k], z_out[k]) for k in b_out) or \
+            records(b_st) != records(z_st):
+        fail(f"{arch}: the zero plan changed the continuous run")
+    out, st, wall = runs["cancel"]
+    deadline = {r.rid: r.deadline_s for r in stamped}
+    lags = [r.finish_s - deadline[r.rid] for r in st.records if r.cancelled]
+    bound = MAX_BATCH + CONT_CHUNK
+    if not 1 <= st.n_cancelled < len(reqs) or any(
+            not 0 <= lag < bound for lag in lags):
+        fail(f"{arch}: {st.n_cancelled} of {len(reqs)} cancelled, lags past "
+             f"the deadline {lags} (bound {bound} units)")
+    live = [r for r in st.records if r.cancelled and r.slot >= 0]
+    say(f"cancel {arch} {CANCEL_SPEC}: requests={len(reqs)} "
+        f"stamped={sum(d is not None for d in deadline.values())} "
+        f"cancelled={st.n_cancelled} (live {len(live)}, queued "
+        f"{st.n_cancelled - len(live)}) tokens={st.tokens_out} (bare "
+        f"{b_st.tokens_out}) prefill_calls={st.prefill_calls} (bare "
+        f"{b_st.prefill_calls}) decode_steps={st.decode_steps} (bare "
+        f"{b_st.decode_steps}) makespan_units={st.sim_s} (bare "
+        f"{b_st.sim_s}) max_lag_units={max(lags):.1f} (bound {bound}) "
+        f"wall_s={wall:.4f}; zero plan == bare bit for bit")
+    return counts
+
+
+def cancel_smoke_card_vs_cpu(torch, rt):
+    """10(c): CANCEL_SPEC on llama3.2-1b-smoke in fp32 (the engine mode's
+    model, naive attention), seeded weights on the card and the same on
+    the CPU: the same streams and records, cancellations included."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import faults
+    cfg = dataclasses.replace(rt.configs.get_smoke("llama3.2-1b"),
+                              dtype=torch.float32)
+    bundle = rt.bundle_for(cfg)
+    params = bundle.init_params(0, "cuda")
+    reqs = faults.apply_request_faults(
+        poisson_workload(rt, cfg, 12, 24), faults.parse_faults(CANCEL_SPEC))
+    got = {}
+    for device, p in (("cuda", params), ("cpu", _tree_to(params, "cpu"))):
+        engine = rt.InferenceEngine(bundle, p, max_batch=4, max_seq_len=128,
+                                    prompt_bucket=8, device=device)
+        got[device] = engine.generate_continuous(reqs, n_slots=4, chunk=4,
+                                                 step_time_s=1.0)
+    (c_out, c_st), (h_out, h_st) = got["cuda"], got["cpu"]
+    recs = [[(r.rid, r.slot, r.admit_s, r.finish_s, r.cancelled, r.tokens)
+             for r in st.records] for st in (c_st, h_st)]
+    same = c_out.keys() == h_out.keys() and all(
+        np.array_equal(c_out[k], h_out[k]) for k in h_out)
+    say(f"cancel {cfg.name} fp32 card vs CPU {CANCEL_SPEC}: requests="
+        f"{len(reqs)} cancelled={c_st.n_cancelled}/{h_st.n_cancelled} "
+        f"tokens_equal={same} records_equal={recs[0] == recs[1]}")
+    if not same or recs[0] != recs[1] or not c_st.n_cancelled:
+        fail("cancellation on the smoke model: the card and the CPU differ "
+             "or nothing was cancelled")
+
+
+def flaky_nvml_pull(torch, rt, engine, cfg, prompt_len, limit_w):
+    """10(d): one continuous pull metered through NVML behind a
+    `FlakySensor` (SENSOR_SPEC) at 200 Hz: every injected fault is one
+    sample error of the pull's `Measurement`, and the pull's power and
+    energy stay finite."""
+    import contextlib
+    import math
+    from repro_torch import faults
+    env = rt.EngineEnvironment(
+        engine, rt.energy.JETSON_AGX_ORIN,
+        rt.energy.ORIN_WORKLOADS["llama3.2-1b"], prompt_len=prompt_len,
+        max_new_tokens=NEW_TOKENS, seed=0, sensor="nvml", sample_hz=200.0,
+        scheduler="continuous", requests_per_pull=ENERGY_REQUESTS,
+        arrival_rate=ENERGY_RATE, faults=faults.parse_faults(SENSOR_SPEC))
+    measured = []
+    measure = env.meter.measure
+
+    @contextlib.contextmanager
+    def keep():
+        with measure() as m:
+            yield m
+        measured.append(m)
+    env.meter.measure = keep
+    try:
+        if not isinstance(env.sensor, faults.FlakySensor):
+            fail(f"the sensor plan did not wrap the sensor: {env.sensor}")
+        same_card(torch, env.sensor._inner)
+        space = rt.make_space(f"engine/{cfg.name}")
+        o = env.pull(space.values(space.corner()), 0)
+    finally:
+        env.sensor.close()
+    (m,) = measured
+    injected = env.sensor.faults_injected
+    say(f"flaky nvml pull {cfg.name} {SENSOR_SPEC}: sensor="
+        f"{o.metadata['sensor']} reads={env.sensor._reads} injected="
+        f"{injected} sample_errors={m.sample_errors} samples={m.n_samples} "
+        f"avg_watts={o.power:.3f} energy_j_per_req={o.energy:.5f} "
+        f"requests={o.metadata['n_requests']}")
+    if m.sample_errors != injected or not injected or \
+            not (math.isfinite(o.power) and 0 < o.power <= limit_w) or \
+            not math.isfinite(o.energy):
+        fail(f"flaky nvml pull: {m.sample_errors} sample errors for "
+             f"{injected} injected faults, {o.power} W, {o.energy} J")
+
+
+def serve_faults_on_card():
+    """10(e): `serve.py --mode engine --scheduler continuous --faults`
+    on the card prints the engine mode's keys (as without the flag) and
+    `faults`."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    keys = {}
+    for spec in (None, SERVE_FAULTS):
+        argv = ["serve", "--mode", "engine", "--rounds", "2",
+                "--scheduler", "continuous"]
+        if spec is not None:
+            argv += ["--faults", spec]
+        sys.argv, buf = argv, io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main()
+        out = json.loads(buf.getvalue())
+        keys[spec] = set(out)
+    extra = keys[SERVE_FAULTS] - keys[None]
+    say(f"serve --mode engine --faults {SERVE_FAULTS!r} on the card: "
+        f"faults={out.get('faults')!r} total_tokens={out['total_tokens']} "
+        f"keys beyond the plain run's: {sorted(extra)}")
+    if extra != {"faults"} or out["faults"] != SERVE_FAULTS or \
+            keys[None] - keys[SERVE_FAULTS]:
+        fail(f"serve --faults printed {sorted(keys[SERVE_FAULTS])}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the encoder-decoder at full width
+# ---------------------------------------------------------------------------
+
+#: Phase 11: the greedy tokens a run decodes, the BOS token, and the runs:
+#: (batch, speech frames): the AudioStub's default 512 frames (~20 s of
+#: speech) at batch 4, and the config's max_source_len at batch 1.
+ENCDEC_TOKENS, ENCDEC_BOS = 16, 2
+ENCDEC_RUNS = ((4, 512), (1, 4096))
+#: Decode against the teacher-forced forward on the generated tokens at
+#: full width in bf16: |decode - forward| <= ENCDEC_BF16_TOL * max|forward|.
+#: The two round to bf16 (2^-9) in different orders at each of 48 layers'
+#: products, norms and residual adds, ~1 % of the largest logit; a wrong
+#: position, a stale cache slot or a dropped cross frame moves logits by
+#: their own scale (PERF.md §6).
+ENCDEC_BF16_TOL = 5e-2
+
+
+def encdec_narrow_check(torch, rt):
+    """The narrow fp32 encoder-decoder (seamless-smoke), seeded weights
+    with every bias and norm given noise, on the card and on the CPU:
+    forward, prefill and each decode step within 1e-4 (card vs CPU), and
+    on the card each decode step against the forward within 2e-3."""
+    import dataclasses
+    from repro_torch.models import encdec
+    from repro_torch.models.frontends import AudioStub
+    cfg = dataclasses.replace(rt.configs.get_smoke("seamless-m4t-large-v2"),
+                              dtype=torch.float32)
+    params = encdec.init_params(cfg, 0, "cuda")
+    _add_noise(torch, params, torch.Generator(device="cuda").manual_seed(2),
+               _FAMILY_NOISE)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    speech = AudioStub(num_frames=20, d_model=cfg.d_model).synth(
+        gen, 2, torch.float32) * 25.0
+    tokens = torch.randint(1, cfg.vocab_size, (2, 8), device="cuda",
+                           generator=gen)
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = params if device == "cuda" else _tree_to(params, "cpu")
+        inputs = {"speech_embeddings": speech.to(device),
+                  "tokens": tokens.to(device)}
+        fwd, _ = encdec.forward(cfg, p, inputs)
+        cache = encdec.init_cache(cfg, 2, 32, device)
+        steps = [encdec.prefill(cfg, p, inputs, cache)[0]]
+        for i in range(1, tokens.shape[1]):
+            steps.append(encdec.decode_step(cfg, p, tokens[:, i].to(device),
+                                            cache, i)[0])
+        out[device] = (fwd.cpu(), torch.stack(steps, 1).cpu())
+    card_cpu = max(float((out["cuda"][i] - out["cpu"][i]).abs().max())
+                   for i in (0, 1))
+    dec_fwd = float((out["cuda"][1] - out["cuda"][0]).abs().max())
+    say(f"encdec fp32 {cfg.name} (2+2 layers, d_model {cfg.d_model}): "
+        f"card vs CPU max_abs_diff={card_cpu:.3e} (tol 1e-4); decode vs "
+        f"forward on the card max_abs_diff={dec_fwd:.3e} (tol 2e-3)")
+    if not card_cpu <= 1e-4 or not dec_fwd <= 2e-3:
+        fail("the narrow encoder-decoder disagrees")
+
+
+def encdec_step_floor_ms(cfg, batch, frames, pos):
+    """Least time of one decode step: the bytes it must read over 3.35
+    TB/s.  The decoder's weights but the cross attention's K/V
+    projections (the cross K/V sit in the cache), the tied embedding (the
+    unembedding reads it whole), the cross cache's `frames` keys and
+    values and the self cache's pos + 1, every layer, bf16."""
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = d * h * hd + 2 * d * kvh * hd + h * hd * d + 2 * h * hd \
+        + 2 * kvh * hd + d
+    cross = attn - 2 * d * kvh * hd - 2 * kvh * hd
+    mlp = 2 * d * cfg.d_ff + cfg.d_ff + d
+    weights = cfg.n_dec_layers * (attn + cross + mlp + 6 * d) + 2 * d \
+        + cfg.vocab_size * d
+    caches = cfg.n_dec_layers * batch * (frames + pos + 1) * kvh * hd * 2
+    return (weights + caches) * 2 / HBM_BYTES_PER_S * 1e3
+
+
+def encdec_step_profile(torch, name, graph, steps=4):
+    """A profiled window of `steps` replays of the encoder-decoder's
+    captured decode step: kernels a step, the window's device-busy share
+    and the kernels that take most of its device time."""
+    import collections
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            graph.run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    if not kernels:
+        say(f"encdec step window {name}: the profiler recorded no kernel "
+            f"inside the replays (busy share not measured)")
+        return
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    say(f"encdec step window {name}: kernels_a_step="
+        f"{len(kernels) / steps:.1f} device_us_a_step={busy / steps:.1f} "
+        f"device_busy_share="
+        f"{busy / (end - start):.4f}")
+    by_name = collections.defaultdict(list)
+    for e in kernels:
+        by_name[e.name].append(e.time_range.elapsed_us())
+    for kname, us in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
+        say(f"encdec_top {name} {kname[:70]}: share={sum(us) / busy:.4f} "
+            f"us_a_step={sum(us) / steps:.1f} launches_a_step="
+            f"{len(us) / steps:.1f}")
+
+
+def encdec_full_width(torch, rt, ops, smi):
+    """Phase 11: seamless-m4t-large-v2 as published, bf16, seeded random
+    weights, behind the engine's `DecodeGraph`: for each ENCDEC_RUNS
+    shape, AudioStub speech frames, BOS and ENCDEC_TOKENS greedy tokens
+    (eager steps, then the same steps replayed as one CUDA graph a step,
+    tokens equal), the encode, prefill and decode-step times (median),
+    the step's byte floor, peak memory, and the decode logits against the
+    teacher-forced forward on the generated tokens.  No kernel of the
+    port is launched (naive attention, LayerNorm, ReLU MLP)."""
+    import statistics
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.frontends import AudioStub
+    from repro_torch.serving.engine import DecodeGraph
+    cfg = rt.configs.get("seamless-m4t-large-v2")
+    bundle = rt.bundle_for(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = bundle.init_params(0, "cuda")
+    torch.cuda.synchronize()
+    say(f"encdec full width ({smi}): {cfg.name} {cfg.n_enc_layers}+"
+        f"{cfg.n_dec_layers} layers d_model={cfg.d_model} {cfg.n_heads}H x "
+        f"{cfg.head_dim} d_ff={cfg.d_ff} ({cfg.act}) vocab={cfg.vocab_size} "
+        f"tied={cfg.tie_embeddings} n_params={cfg.n_params} bf16_gb="
+        f"{2 * cfg.n_params / 1e9:.3f} init_s={time.monotonic() - t0:.2f}")
+    reset_counts(ops)
+
+    def timed(fn, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            result = fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.monotonic() - t))
+        return result, statistics.median(times), times
+
+    for batch, frames in ENCDEC_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(frames)
+        speech = AudioStub(num_frames=frames, d_model=cfg.d_model).synth(
+            gen, batch)
+        bos = torch.full((batch, 1), ENCDEC_BOS, dtype=torch.long,
+                         device="cuda")
+        inputs = {"speech_embeddings": speech, "tokens": bos}
+        engine = rt.InferenceEngine(bundle, params, max_batch=batch,
+                                    max_seq_len=frames, device="cuda")
+        with torch.inference_mode():
+            _, enc_ms, _ = timed(lambda: bundle.module.encode(
+                cfg, params, speech), 3)
+            cache = bundle.init_cache(batch, frames, "cuda")
+            graph = DecodeGraph(engine, batch, cache)
+            (logits, _), pre_ms, _ = timed(lambda: bundle.prefill(
+                params, inputs, cache), 3)
+            first = torch.argmax(logits, dim=-1)
+            toks, step_ms, steps = [first], [], [logits]
+            for i in range(1, ENCDEC_TOKENS):
+                (logits, _), ms, _ = timed(lambda: bundle.decode_step(
+                    params, toks[-1], cache, i), 1)
+                step_ms.append(ms)
+                steps.append(logits)
+                toks.append(torch.argmax(logits, dim=-1))
+            eager, dec = torch.stack(toks, 1), torch.stack(steps, 1)
+            # The same steps replayed: the capture's warm-up wrote self
+            # slots 0-1, so prefill again, then replay from position 1.
+            bundle.prefill(params, inputs, cache)
+            graph.tok.copy_(first)
+            graph.pos.fill_(1)
+            replayed, graph_ms = [first], []
+            for _ in range(1, ENCDEC_TOKENS):
+                _, ms, _ = timed(graph.run, 1)
+                graph_ms.append(ms)
+                replayed.append(graph.tok.clone())
+            replayed = torch.stack(replayed, 1)
+            fwd, _ = bundle.forward(params, {
+                "speech_embeddings": speech,
+                "tokens": torch.cat([bos, eager[:, :-1]], 1)})
+        err = float((dec - fwd).abs().max())
+        ref_max = float(fwd.abs().max())
+        agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        floor = encdec_step_floor_ms(cfg, batch, frames, ENCDEC_TOKENS // 2)
+        say(f"encdec {cfg.name} b={batch} frames={frames} ({smi}): "
+            f"encode_ms={enc_ms:.3f} prefill_ms={pre_ms:.3f} (encode, "
+            f"cross K/V, BOS step) decode_step_ms eager="
+            f"{statistics.median(step_ms):.3f} graph="
+            f"{statistics.median(graph_ms):.3f} step_floor_ms="
+            f"{floor:.4f} graph_over_floor="
+            f"{statistics.median(graph_ms) / floor:.2f} "
+            f"capture_s={graph.capture_s:.3f} peak_device_memory_gb="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} "
+            f"tokens={eager[0, :8].tolist()}... graph_tokens_equal="
+            f"{bool(torch.equal(replayed, eager))} decode_vs_forward "
+            f"max_abs_diff={err:.4e} max_abs_ref={ref_max:.4f} "
+            f"rel={err / ref_max:.4e} (tol {ENCDEC_BF16_TOL}) "
+            f"argmax_agree={agree:.4f}")
+        if eager.shape != (batch, ENCDEC_TOKENS) or \
+                not bool(torch.isfinite(dec).all()) or \
+                not torch.equal(replayed, eager) or \
+                not err <= ENCDEC_BF16_TOL * ref_max:
+            fail(f"encdec b={batch} frames={frames}: bad tokens or logits")
+        with torch.inference_mode():
+            encdec_step_profile(torch, f"b={batch} frames={frames}", graph)
+        del engine, graph, cache, fwd, dec
+    counts = launch_counts()
+    say(f"encdec launch counts (naive attention, as in the reference): "
+        f"{counts}")
+    if any(counts.values()):
+        fail(f"the encoder-decoder launched a kernel: {counts}")
+    del params
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     t_start = time.monotonic()
@@ -2436,7 +3045,7 @@ def main() -> None:
     # Phases 4 and 5, once per main path
     import gc
     totals = dict.fromkeys(ops, 0)
-    phase9_s = 0.0
+    phase9_s = phase10_s = 0.0
     for arch, prompt_len, bucket, rounds, continuous in PATHS:
         counts, n_generate, cfg, engine, prompts = serve_full_width(
             torch, rt, ops, arch, prompt_len, bucket, rounds)
@@ -2468,7 +3077,7 @@ def main() -> None:
             admission_prefill(torch, engine, cfg, prompt_len)
             measured_energy(torch, rt, engine, cfg, prompt_len, prompts,
                             limit_w)
-        # Phase 9(d)
+        # Phases 9(d), 10(b) and 10(d)
         if arch == "llama3.2-1b":
             t9 = time.monotonic()
             counts = controllers_on_engine(torch, rt, ops, engine, cfg,
@@ -2476,6 +3085,13 @@ def main() -> None:
             for name in totals:
                 totals[name] += counts[name]
             phase9_s += time.monotonic() - t9
+            t10 = time.monotonic()
+            counts = cancel_full_width(torch, rt, ops, engine, cfg,
+                                       prompt_len)
+            for name in totals:
+                totals[name] += counts[name]
+            flaky_nvml_pull(torch, rt, engine, cfg, prompt_len, limit_w)
+            phase10_s += time.monotonic() - t10
         del engine, prompts
         gc.collect()
         torch.cuda.empty_cache()
@@ -2485,6 +3101,20 @@ def main() -> None:
     search_on_card(torch)
     phase9_s += time.monotonic() - t9
     say(f"phase 9 seconds={phase9_s:.1f}")
+
+    # Phase 10(a), (c) and (e)
+    t10 = time.monotonic()
+    e14_on_card()
+    cancel_smoke_card_vs_cpu(torch, rt)
+    serve_faults_on_card()
+    phase10_s += time.monotonic() - t10
+    say(f"phase 10 seconds={phase10_s:.1f}")
+
+    # Phase 11, after every path's weights are freed
+    t11 = time.monotonic()
+    encdec_narrow_check(torch, rt)
+    encdec_full_width(torch, rt, ops, smi)
+    say(f"phase 11 seconds={time.monotonic() - t11:.1f}")
 
     say(f"chip_smoke total_s={time.monotonic() - t_start:.1f}")
     record = []

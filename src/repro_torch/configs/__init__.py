@@ -1,5 +1,4 @@
-"""Architecture configs of the port: those of `repro.configs` but
-seamless-m4t-large-v2 (an encoder-decoder the port has no family for).
+"""Architecture configs of the port: every config of `repro.configs`.
 
 `get(name)` returns the full config; `get_smoke(name)` the reduced
 same-family config for CPU tests and the default engine environment."""
@@ -21,6 +20,7 @@ ALIASES: Dict[str, str] = {
     "gemma2-27b": "gemma2_27b",
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
     "mixtral-8x22b": "mixtral_8x22b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 

@@ -49,9 +49,19 @@ Options:
                    dispatcher's submits and waves and the engine's spans
                    go to a JSONL trace with the metrics snapshot appended;
                    summarize it with `tools/trace_report.py PATH`.
+  --faults SPEC    seeded fault injection (`repro_torch.faults.parse_faults`,
+                   the reference's grammar, e.g.
+                   ``pull_fail=0.2,crash=0@4,deadline=4,seed=1``): the fleet
+                   modes run behind the fault-wrapping fleet env (crashed
+                   and throttled devices, flaky pulls, dispatcher deadlines
+                   and retries), the engine mode stamps request deadlines
+                   and wraps its power sensor, and any run-level sensor
+                   becomes flaky.  An empty or ``none`` spec is a no-op
+                   (a bit-identical run); the output gains a `faults` key
+                   otherwise.
 
-Runs on CUDA unless `--device cpu` is given.  The reference's tpu mode and
-`--faults` are not ported yet.
+Runs on CUDA unless `--device cpu` is given.  The reference's tpu mode is
+not ported yet.
 
 Usage (from the repository root):
     PYTHONPATH=src python -m repro_torch.launch.serve --model llama3.2-1b \
@@ -78,6 +88,7 @@ import math
 
 from repro_torch import obs
 from repro_torch.core import baselines, controller, cost, priors
+from repro_torch.faults import parse_faults, wrap_env, wrap_sensor
 from repro_torch.platform import make_env, make_space
 from repro_torch.serving import energy as energy_mod
 from repro_torch.serving import simulator as sim_mod
@@ -162,16 +173,18 @@ def validate_mode(model: str, n_requests: int, alpha: float, seed: int,
 
 def engine_mode(arch: str, rounds: int, alpha: float, seed: int,
                 sensor: str = "simulated", decode_impl: str = "fused",
-                scheduler: str = "static", device=None) -> dict:
+                scheduler: str = "static", faults=None,
+                device=None) -> dict:
     """Reference the cost model at the (max f, max b) corner, then run
     `rounds` rounds of CamelTS against the engine environment.  `sensor`
     meters every pull (the default "simulated" sensor reads the same
     board model the unmetered path evaluates, bit-identically);
-    `scheduler` picks the serving discipline per pull."""
+    `scheduler` picks the serving discipline per pull; `faults` (a
+    `FaultPlan`) wraps the sensor and cancels requests."""
     name = f"engine/{arch}"
     env = make_env(name, seed=seed, prompt_len=16, max_new_tokens=8,
                    sensor=sensor, decode_impl=decode_impl,
-                   scheduler=scheduler, device=device)
+                   scheduler=scheduler, faults=faults, device=device)
     space = make_space(name)
     cm = cost.CostModel(alpha=alpha)
     e0, l0 = env.pull(space.values(space.corner()), 0)
@@ -208,10 +221,12 @@ def _fleet_summary(res, space, opt_arm: int, n_devices: int, k: int,
 
 def fleet_run(model: str, rounds: int, alpha: float, seed: int,
               n_devices: int, k: int = 0, policy_name: str = "camel",
-              straggler=None, device=None):
+              straggler=None, faults=None, device=None):
     """The search of `fleet_mode` (``straggler=None``: the synchronous
     `BatchController`) or of `async_fleet_mode` (the `AsyncController`,
-    device 0's results `straggler` x slower).  Returns (summary, the
+    device 0's results `straggler` x slower).  `faults` (a `FaultPlan`)
+    wraps the run env only (`wrap_env`); the cost model's reference and
+    the landscape's optimum stay fault-free.  Returns (summary, the
     controller's result)."""
     k = k if k > 0 else n_devices
     name = f"fleet/{n_devices}xjetson/{model}/landscape"
@@ -226,7 +241,9 @@ def fleet_run(model: str, rounds: int, alpha: float, seed: int,
         else controller.AsyncController
     ctrl = ctrl_cls(space, policy, cm, optimal_cost=opt_cost, seed=seed,
                     k=k)
-    res = ctrl.run(env, max(1, math.ceil(rounds / k)), pull_budget=rounds)
+    run_env = env if faults is None else wrap_env(env, faults)
+    res = ctrl.run(run_env, max(1, math.ceil(rounds / k)),
+                   pull_budget=rounds)
     out = _fleet_summary(res, space, opt_arm, n_devices, k, policy_name)
     if straggler is None:
         out["n_rounds"] = res.n_rounds
@@ -246,23 +263,24 @@ def fleet_run(model: str, rounds: int, alpha: float, seed: int,
 
 def fleet_mode(model: str, rounds: int, alpha: float, seed: int,
                n_devices: int, k: int = 0, policy_name: str = "camel",
-               device=None) -> dict:
+               faults=None, device=None) -> dict:
     """Batched Camel search over an N-device fleet: K slots a round
     (default: one per device) across the fleet's shared arrival queue,
     one delayed posterior update a round."""
     return fleet_run(model, rounds, alpha, seed, n_devices, k, policy_name,
-                     device=device)[0]
+                     faults=faults, device=device)[0]
 
 
 def async_fleet_mode(model: str, rounds: int, alpha: float, seed: int,
                      n_devices: int, k: int = 0, straggler: float = 1.0,
-                     policy_name: str = "camel", device=None) -> dict:
+                     policy_name: str = "camel", faults=None,
+                     device=None) -> dict:
     """Asynchronous Camel search over an N-device fleet: K arms in flight
     through the completion-ordered dispatcher (default K = fleet size),
     staleness-aware updates a completion; `straggler` slows device 0's
     completions without changing its telemetry."""
     return fleet_run(model, rounds, alpha, seed, n_devices, k, policy_name,
-                     straggler=straggler, device=device)[0]
+                     straggler=straggler, faults=faults, device=device)[0]
 
 
 def main() -> None:
@@ -309,9 +327,18 @@ def main() -> None:
                     help="write the run's JSONL event trace + metrics "
                          "snapshot here (summarize with "
                          "tools/trace_report.py)")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="seeded fault injection spec, e.g. "
+                         "'pull_fail=0.2,crash=0@4,deadline=4,seed=1' "
+                         "(the reference's grammar, docs/RESILIENCE.md); "
+                         "empty or 'none' disables injection")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch path)")
     args = ap.parse_args()
+
+    plan = parse_faults(args.faults) if args.faults else None
+    if plan is not None and plan.is_zero:
+        plan = None      # an explicit no-op spec keeps the bit-identical run
     if args.policy == "contextual" and args.mode not in ("fleet",
                                                          "async-fleet"):
         ap.error("--policy contextual needs device context; use "
@@ -329,15 +356,18 @@ def main() -> None:
             return engine_mode(args.arch, args.rounds, args.alpha,
                                args.seed, sensor=args.sensor,
                                decode_impl=args.decode_impl,
-                               scheduler=args.scheduler, device=args.device)
+                               scheduler=args.scheduler, faults=plan,
+                               device=args.device)
         if args.mode == "fleet":
             return fleet_mode(args.model, args.rounds, args.alpha,
                               args.seed, args.fleet_size, k=args.k,
-                              policy_name=args.policy, device=args.device)
+                              policy_name=args.policy, faults=plan,
+                              device=args.device)
         return async_fleet_mode(args.model, args.rounds, args.alpha,
                                 args.seed, args.fleet_size, k=args.k,
                                 straggler=args.straggler,
-                                policy_name=args.policy, device=args.device)
+                                policy_name=args.policy, faults=plan,
+                                device=args.device)
 
     session = obs.observing(args.metrics_out) if args.metrics_out \
         else contextlib.nullcontext()
@@ -346,6 +376,8 @@ def main() -> None:
             # The engine mode meters each pull; every other backend is
             # simulation-clocked, so the sensor meters the whole run.
             sensor = obs.make_sensor(args.sensor)
+            if plan is not None:
+                sensor = wrap_sensor(sensor, plan)
             meter = obs.EnergyMeter(sensor)
             try:
                 with meter.measure() as m:
@@ -356,6 +388,8 @@ def main() -> None:
             out["sensor"] = m.summary()
         else:
             out = dispatch()
+    if plan is not None:
+        out["faults"] = args.faults
     print(json.dumps(out, indent=2, default=str))
 
 

@@ -1,1 +1,2 @@
-"""Model substrate of the port: shared layers and the transformer family."""
+"""Model substrate of the port: shared layers and the transformer, rwkv6,
+rglru and encoder-decoder families."""

@@ -1,6 +1,6 @@
-"""Shared model components of the port (`repro.models.common` without its
-sinusoidal table and `self_attention`, which no served path reaches):
-RMSNorm, LayerNorm, rotary embeddings, GQA attention with optional qk-norm,
+"""Shared model components of the port (`repro.models.common`): RMSNorm,
+LayerNorm, rotary embeddings and the sinusoidal position table (with its
+one-row form), GQA attention with optional qk-norm,
 q/k/v and output biases and a logit softcap, the native or int8 KV cache as
 a plain or a ring (sliding-window) buffer, cached decode attention, prefill
 into the cache, the gated MLP (SwiGLU and GeGLU) and the dense one, tied or
@@ -128,6 +128,31 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0
     return out.to(x.dtype)
 
 
+def _sinusoidal_angles(pos: Tensor, dim: int) -> Tensor:
+    """fp32 angles [len(pos), dim // 2] of fp32 positions `pos`: the
+    reference's `pos * exp(-log(10000) * i / half)`, element for element."""
+    half = dim // 2
+    div = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / half)
+    return pos[:, None] * div[None, :]
+
+
+def sinusoidal_positions(max_len: int, dim: int, device=None) -> Tensor:
+    """Classic sin/cos absolute position table [max_len, dim] (fp32)."""
+    ang = _sinusoidal_angles(torch.arange(max_len, dtype=torch.float32,
+                                          device=device), dim)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_position(pos, dim: int, device=None) -> Tensor:
+    """Row `pos` of `sinusoidal_positions(max_len, dim)`, [1, dim], made with
+    the same fp32 operations on that row alone (a decode step needs one
+    row, and the table at 32768 x 1024 is 134 MB).  `pos` is an int or a
+    0-d integer tensor on the device (`as_pos`), read on the device."""
+    ang = _sinusoidal_angles(as_pos(pos, device).float().reshape(1), dim)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA)
 # ---------------------------------------------------------------------------
@@ -231,6 +256,27 @@ def causal_mask(sq: int, sk: int, window: int = 0, device=None) -> Tensor:
     if window > 0:
         m = m & (kpos > qpos - window)
     return m[None]
+
+
+def self_attention(params: Params, spec: AttnSpec, x: Tensor,
+                   positions: Optional[Tensor],
+                   mask: Optional[Tensor] = None) -> Tensor:
+    """Full-sequence self-attention without a cache (the encoder-decoder's
+    layers).  `attn_impl == "flash"` runs the blocked reference of
+    `models/flash.py`, causal; otherwise the naive masked softmax over
+    `mask` ([B or 1, Sq, Sk] bool), causal (with the spec's window) when
+    none is given, as the reference routes it."""
+    q, k, v = _project_qkv(params, spec, x, positions)
+    if spec.attn_impl == "flash":
+        from repro_torch.models import flash
+        ctx = flash.flash_attention(q, k, v, spec, causal=True)
+    else:
+        s = x.shape[1]
+        if mask is None:
+            mask = causal_mask(s, s, window=spec.sliding_window,
+                               device=x.device)
+        ctx = mha_attend(q, k, v, mask.expand(x.shape[0], s, s), spec)
+    return attn_out(params, spec, ctx)
 
 
 # --- KV cache ---------------------------------------------------------------
@@ -446,7 +492,8 @@ ACTS = {"silu": F.silu,
         # jax.nn.gelu's default is the tanh approximation: "gelu" (the
         # dense MLP's default) and "gelu_tanh" are one function there.
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
-        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu}
 
 
 def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
@@ -546,13 +593,14 @@ def tensor_from_jax(a, dtype, device) -> Tensor:
         .to(device=device, dtype=dtype)
 
 
-def params_from_jax_tree(tree: Params, n_layers: int,
+def params_from_jax_tree(tree: Params, stacks: Dict[str, int],
                          dtype_of: Callable[[str], Any], device) -> Params:
     """The port's params from a JAX params tree (nested dicts of numpy or
-    JAX arrays) whose `tree["layers"]` stacks the layers on a leading
-    `[layers, ...]` axis.  Keys are kept, the layers are unstacked into a
-    list of per-layer dicts, weights keep their layout, and each leaf is
-    cast to `dtype_of(its key)`."""
+    JAX arrays) in which each key of `stacks` (`{"layers": n_layers}`, or
+    the encoder-decoder's two stacks) holds that many layers stacked on a
+    leading `[layers, ...]` axis.  Keys are kept, each stack is unstacked
+    into a list of per-layer dicts, weights keep their layout, and each
+    leaf is cast to `dtype_of(its key)`."""
 
     def conv(node, layer=None, key=None):
         if isinstance(node, dict):
@@ -561,12 +609,13 @@ def params_from_jax_tree(tree: Params, n_layers: int,
         return tensor_from_jax(a if layer is None else a[layer],
                                dtype_of(key), device)
 
-    leaf = tree["layers"]
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    n = np.asarray(leaf).shape[0]
-    if n != n_layers:
-        raise ValueError(f"tree has {n} layers, config {n_layers}")
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [conv(tree["layers"], i) for i in range(n)]
+    out = {k: conv(v) for k, v in tree.items() if k not in stacks}
+    for name, n_layers in stacks.items():
+        leaf = tree[name]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        n = np.asarray(leaf).shape[0]
+        if n != n_layers:
+            raise ValueError(f"tree has {n} {name}, config {n_layers}")
+        out[name] = [conv(tree[name], i) for i in range(n)]
     return out

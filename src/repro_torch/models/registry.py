@@ -1,14 +1,17 @@
-"""Uniform model API of the port (the transformer, rwkv6 and rglru families
-of `repro.models.registry`).
+"""Uniform model API of the port (`repro.models.registry`: the transformer,
+rwkv6, rglru and encdec families).
 
 A `ModelBundle` exposes the family-agnostic surface the serving engine
 and tests consume:
 
     bundle.init_params(seed, device)
-    bundle.forward(params, tokens)        -> (logits, aux)
+    bundle.forward(params, inputs)        -> (logits, aux)
     bundle.init_cache(batch, max_len, device)
-    bundle.prefill(params, tokens, cache) -> (logits, cache)
+    bundle.prefill(params, inputs, cache) -> (logits, cache)
     bundle.decode_step(params, token, cache, pos) -> (logits, cache)
+
+`inputs` are tokens [B, S], or for the encdec family
+{"speech_embeddings": [B, T, D], "tokens": [B, S]}, as in the reference.
 """
 
 from __future__ import annotations
@@ -16,13 +19,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.models import rglru, rwkv6, transformer
+from repro_torch.models import encdec, rglru, rwkv6, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: Any
-    family: str            # "transformer" | "rwkv6" | "rglru"
+    family: str            # "transformer" | "rwkv6" | "rglru" | "encdec"
     module: Any
 
     def init_params(self, seed: int = 0, device=None):
@@ -44,8 +47,8 @@ class ModelBundle:
     def zero_state(self, cache) -> None:
         """Zero the recurrent part of a reused cache in place: the state
         prefill starts from and updates (rwkv6: all of it; rglru: `lru_h`
-        and `conv_tail`; the transformer: nothing, since stale KV entries
-        are masked or rewritten)."""
+        and `conv_tail`; the transformer and encdec: nothing, since stale KV
+        entries are masked or rewritten)."""
         for key in self.module.STATE_KEYS:
             cache[key].zero_()
 
@@ -59,11 +62,12 @@ class ModelBundle:
 
 
 _FAMILY_MODULES = {"transformer": transformer, "rwkv6": rwkv6,
-                   "rglru": rglru}
+                   "rglru": rglru, "encdec": encdec}
 
 _FAMILY_OF_CONFIG = {transformer.TransformerConfig: "transformer",
                      rwkv6.RWKV6Config: "rwkv6",
-                     rglru.RGLRUConfig: "rglru"}
+                     rglru.RGLRUConfig: "rglru",
+                     encdec.EncDecConfig: "encdec"}
 
 
 def bundle_for(cfg) -> ModelBundle:

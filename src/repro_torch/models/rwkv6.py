@@ -162,7 +162,7 @@ def init_params(cfg: RWKV6Config, seed: int = 0, device=None) -> Params:
 def params_from_jax(cfg: RWKV6Config, tree: Params, device=None) -> Params:
     """The port's params from the JAX params tree of the same config
     (`common.params_from_jax_tree`), every leaf in `cfg.dtype`."""
-    return common.params_from_jax_tree(tree, cfg.n_layers,
+    return common.params_from_jax_tree(tree, {"layers": cfg.n_layers},
                                        lambda key: cfg.dtype,
                                        resolve_device(device))
 

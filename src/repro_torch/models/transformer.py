@@ -216,7 +216,8 @@ def params_from_jax(cfg: TransformerConfig, tree: Params,
     `_FIXED_DTYPES`, which keep the dtype the reference gives them.
     """
     return common.params_from_jax_tree(
-        tree, cfg.n_layers, lambda key: _FIXED_DTYPES.get(key, cfg.dtype),
+        tree, {"layers": cfg.n_layers},
+        lambda key: _FIXED_DTYPES.get(key, cfg.dtype),
         resolve_device(device))
 
 

@@ -49,8 +49,9 @@ bandit discounts for (`bandit.update_stale`).
 A device whose `pull_on` raises `PullFault` is re-dispatched, quarantined
 and ultimately censored by the dispatcher; an infinite `dispatch_factors`
 entry models a *hung* device, survivable only with dispatcher deadlines
-armed (`AsyncDispatcher(deadline_s=...)`).  The reference's fault
-injectors (`repro.faults`) are not ported yet.
+armed (`AsyncDispatcher(deadline_s=...)`).  `repro_torch.faults` wraps a
+fleet in a seeded fault plan (`FaultyFleet`: crashes, throttles, flaky
+pulls, and the dispatcher's deadlines and retries from the same plan).
 """
 
 from __future__ import annotations

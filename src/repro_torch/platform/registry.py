@@ -255,12 +255,13 @@ def _engine_live(arch: str, *, seed: int = 0, max_batch: int = 28,
                  decode_impl: str = "fused", prompt_bucket: int = 16,
                  scheduler: str = "static",
                  requests_per_pull=None, eos_id=None, chunk: int = 16,
-                 device=None):
+                 faults=None, device=None):
     """The engine backend on `arch`'s smoke config with seeded random
     weights, as the reference builds it; runs on CUDA unless `device`
-    says otherwise.  `sensor`/`sample_hz` meter each pull and
+    says otherwise.  `sensor`/`sample_hz` meter each pull,
     `scheduler`/`requests_per_pull`/`eos_id`/`chunk` pick the serving
-    discipline (`serving.engine.EngineEnvironment`)."""
+    discipline and `faults` (a `FaultPlan`) injects sensor faults and
+    request cancellations (`serving.engine.EngineEnvironment`)."""
     import repro_torch.configs as configs_mod
     from repro_torch._device import resolve_device
     from repro_torch.models.registry import bundle_for
@@ -287,4 +288,4 @@ def _engine_live(arch: str, *, seed: int = 0, max_batch: int = 28,
                              sensor=sensor, sample_hz=sample_hz,
                              scheduler=scheduler,
                              requests_per_pull=requests_per_pull,
-                             eos_id=eos_id, chunk=chunk)
+                             eos_id=eos_id, chunk=chunk, faults=faults)

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.faults import apply_request_faults, wrap_sensor
 from repro_torch.kernels import launch_counts
 from repro_torch.models.registry import ModelBundle
 from repro_torch.obs import EnergyMeter, make_sensor
@@ -527,6 +528,11 @@ class InferenceEngine:
             raise ValueError(f"eos_id must be None or >= 0, got {eos_id}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if self.bundle.family == "encdec":
+            raise ValueError(
+                "continuous batching is unsupported for the encdec family "
+                "(absolute sinusoidal positions forbid offset admission; "
+                "see models/encdec.py)")
         b = n_slots if n_slots is not None else min(self.max_batch,
                                                     len(reqs))
         if not 1 <= b <= self.max_batch:
@@ -759,8 +765,14 @@ class EngineEnvironment(BaseEnvironment):
     lengths from `ArrivalProcess`) through `generate_continuous` with the
     batch arm as the slot-pool width, and the Observation carries the
     measured per-request latency, queue wait and goodput instead of the
-    analytic queueing model.  The reference's `faults=` is not ported
-    yet.  Registry name: "engine/<arch>"."""
+    analytic queueing model.
+
+    `faults=` (a `repro_torch.faults.FaultPlan`) injects the plan's sensor
+    faults into the meter's sensor (`wrap_sensor`) and stamps its
+    client-abandonment deadlines on the continuous workload's requests
+    (`apply_request_faults`), which `generate_continuous` cancels between
+    chunks.  A zero plan is dropped outright, so the run stays
+    bit-identical to one without it.  Registry name: "engine/<arch>"."""
 
     def __init__(self, engine: InferenceEngine, board, work,
                  arrival_rate: float = 1.0, prompt_len: int = 32,
@@ -768,7 +780,8 @@ class EngineEnvironment(BaseEnvironment):
                  sensor=None, sample_hz: float = 20.0,
                  scheduler: str = "static",
                  requests_per_pull: Optional[int] = None,
-                 eos_id: Optional[int] = None, chunk: int = 16):
+                 eos_id: Optional[int] = None, chunk: int = 16,
+                 faults=None):
         if scheduler not in ("static", "continuous"):
             raise ValueError(f"scheduler must be 'static' or 'continuous', "
                              f"got {scheduler!r}")
@@ -785,8 +798,12 @@ class EngineEnvironment(BaseEnvironment):
         self.chunk = chunk
         self.seed_base = seed
         self.rng = np.random.default_rng(seed)
+        self.faults = faults if faults is not None \
+            and not faults.is_zero else None
         self.sensor = make_sensor(sensor, platform=self.platform) \
             if sensor is not None else None
+        if self.faults is not None and self.sensor is not None:
+            self.sensor = wrap_sensor(self.sensor, self.faults)
         self.meter = EnergyMeter(self.sensor, hz=sample_hz) \
             if self.sensor is not None else None
 
@@ -835,6 +852,8 @@ class EngineEnvironment(BaseEnvironment):
             reqs.append(EngineRequest(rid=r.rid, prompt=toks,
                                       max_new_tokens=mnt,
                                       arrival_s=r.arrival_s))
+        if self.faults is not None:
+            reqs = apply_request_faults(reqs, self.faults)
         return reqs
 
     def _freq_factor(self, level: int) -> float:

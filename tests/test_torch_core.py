@@ -223,7 +223,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 20
     names = {f.relative_to(REPO).as_posix() for f in files}
     for mod in ("core/priors.py", "platform/fleet.py",
-                "serving/simulator.py", "launch/serve.py"):
+                "serving/simulator.py", "launch/serve.py",
+                "faults/plan.py", "faults/injectors.py",
+                "models/encdec.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for mod in _imported_modules(f):

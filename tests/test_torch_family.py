@@ -165,11 +165,11 @@ def test_config_matches_reference(arch):
 
 def test_edge_models_and_aliases_follow_the_reference():
     """The port has the paper's two edge models, and every alias of the
-    reference but its encoder-decoder."""
+    reference."""
     for name in jax_configs.EDGE_MODELS:
         assert torch_configs.get(name).name == jax_configs.get(name).name
     ported = set(torch_configs.ALIASES)
-    assert ported == set(jax_configs.ALIASES) - {"seamless-m4t-large-v2"}
+    assert ported == set(jax_configs.ALIASES)
     for alias in ported:
         assert torch_configs.ALIASES[alias] == jax_configs.ALIASES[alias]
 
