@@ -218,11 +218,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      equal; a profiled window of replays: kernels a step, busy share, the
      top kernels), the step's byte floor, peak memory, decode against the
      teacher-forced forward within ENCDEC_BF16_TOL of its largest logit,
-     and no kernel launched (naive attention, as in the reference).
+     and no kernel launched (naive attention, as in the reference);
+ 12. training (`launch/train.py`, `launch/steps.py`, the models'
+     `loss_fn` and remat) after phase 11 frees its weights: (a) the narrow
+     fp32 llama3.2-1b-smoke and olmoe-1b-7b-smoke, the same params and
+     batch on the card and on the CPU: every leaf's gradient present, per
+     leaf within 1e-3 of the CPU's norm and elementwise within 5e-3
+     (tests/test_flash_equiv.py), then 5 AdamW steps whose losses agree
+     within 1e-4 relative; (b) llama3.2-1b as published (16 layers, d
+     2048, 32/8 x 64, vocab 128256, 1,235,812,352 parameters, bf16)
+     through `run_training` at B 8 x S 512 for 8 steps: step ms, tokens/s,
+     model-FLOP utilization (6 N tokens / step s / 989e12), peak memory,
+     the losses (finite, the last below the first) and the kernel launches
+     a step, forward and backward, equal to what the config implies
+     (`expected_train_launches`); then a crash at step 5 with a checkpoint
+     every 2 steps and the resume (start step >= 4, losses within 1e-3
+     relative of the uninterrupted run's); (c) remat "full" and "dots" at
+     (b)'s shape, losses within 1e-3 relative of "none", launches exact
+     (the recomputed forward relaunches the blocks' norms); (d)
+     olmoe-1b-7b at full width (64 experts top-8, qk-norm) cut to 4 of its
+     16 layers (the whole model's 6.92 B parameters at 12 bytes each in
+     training, 83 GB, exceed the card), 8 steps with (b)'s outputs and the
+     grouped GEMM's forward, dx, dw and transposed-copy launches exact.
+     Phase 2 holds the backward kernels to autograd of their plain
+     versions at these shapes: RMSNorm's (dx, and dscale to
+     SUM_TOLERANCE) at llama's 4096 x 2048 rows and olmoe's 65536 x 128
+     qk-norm rows, the grouped GEMM's dx and dw at
+     `[64,640,2048]@[64,2048,1024]` and `[64,640,1024]@[64,1024,2048]`
+     (SUM_TOLERANCE), each timed beside its written-out plain backward
+     and a library call (autograd's backward of `F.rms_norm`; `torch.bmm`
+     on transposed views); and each backward's second kernel alone:
+     RMSNorm's dscale column sum (beside `torch.sum`) and the grouped
+     GEMM's transposed copies (beside PyTorch's own copy).
 
 The line before the last holds the card's name and power limit, the one
-before it the kernels' JSON record (`launches` summed over the four
-paths' counted runs, phase 7's included; times at the llama shapes for the attention and norm
+before it the kernels' JSON record (`launches` summed over the paths'
+counted runs, phases 7 and 12 included; the backward kernels'
+rows, `rmsnorm_bwd`, `rmsnorm_dscale`, `moe_gemm_dx`, `moe_gemm_dw` and
+`moe_gemm_transpose`, count phase 12's runs and are timed at llama's
+training rows and olmoe's gate/up training product, `rmsnorm_bwd`'s and
+`moe_gemm_dx`/`_dw`'s times the whole backward call, its second kernel
+included; times at the llama shapes for the attention and norm
 kernels, at olmoe's decode gate/up product for the grouped GEMM, at
 rwkv6-3b's decode step for WKV6 and at recurrentgemma-9b's decode step
 for the RG-LRU kernel's gated front end, the one the path runs), and the
@@ -235,6 +271,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -283,6 +320,23 @@ KERNELS = {
     "rglru": ("src/repro_torch/csrc/rglru.cu",
               "src/repro/kernels/rglru/rglru.py:31"),
 }
+#: The training backward's kernels (phase 12), by record name: their
+#: source and the Pallas kernel whose forward they differentiate.
+BACKWARD_KERNELS = {
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/rmsnorm.py:19"),
+    "moe_gemm_dx": ("src/repro_torch/csrc/moe_gemm.cu",
+                    "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
+    "moe_gemm_dw": ("src/repro_torch/csrc/moe_gemm.cu",
+                    "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
+    "rmsnorm_dscale": ("src/repro_torch/csrc/rmsnorm.cu",
+                       "src/repro/kernels/rmsnorm/rmsnorm.py:19"),
+    "moe_gemm_transpose": ("src/repro_torch/csrc/moe_gemm.cu",
+                           "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
+}
+BACKWARD_NOTE = ("no Pallas backward exists (the reference trains through "
+                 "pure JAX); this kernel is the gradient of the port's "
+                 "forward kernel that replaces the one named")
 #: Substrings of the port's CUDA kernel names (csrc/*.cu).
 PORT_KERNEL_NAMES = ("rmsnorm_kernel", "attention_kernel",
                      "flash_attention_wgmma", "moe_gemm_",
@@ -738,6 +792,118 @@ def kernel_checks(torch, ops):
               library_note=RGLRU_LIBRARY_NOTE, graph=s_len == 1,
               record_as="rglru")
 
+    def sum_check(name, dtype_name, shape, out, ref):
+        """A column sum (dscale) held as the long sums are: |err| <=
+        SUM_TOLERANCE * (1 + |ref|)."""
+        out, ref = out.float(), ref.float()
+        scaled = ((out - ref).abs() / (1 + ref.abs())).max().item()
+        tol = SUM_TOLERANCE[dtype_name]
+        say(f"kernel {name} dtype={dtype_name} shape={shape} "
+            f"err_over_1_plus_ref={scaled:.3e} tol={tol:g}")
+        if not scaled <= tol:
+            failures.append(f"{name} {dtype_name} {shape}: err={scaled}")
+
+    def rmsnorm_bwd_case(dtype_name, rows_shape, is_main):
+        """RMSNorm's backward kernel (dx and dscale) held to autograd of
+        the plain forward; timed beside the written-out plain backward and
+        autograd's backward of `F.rms_norm`."""
+        rms = ops["rmsnorm"]
+        dt = getattr(torch, dtype_name)
+        e = torch.tensor([], dtype=dt).element_size()
+        width = rows_shape[-1]
+        x, s = rnd(rows_shape, dt), rnd((width,), dt, 0.1)
+        dy = rnd(rows_shape, dt)
+
+        def autograd_plain():
+            xr, sr = x.detach().requires_grad_(), s.detach().requires_grad_()
+            return torch.autograd.grad(rms.rmsnorm_ref(xr, sr), (xr, sr), dy)
+        xl = x.detach().requires_grad_()
+        wl = (1.0 + s).detach().requires_grad_()
+        yl = F.rms_norm(xl, (width,), wl, 1e-6)
+        n = x.numel()
+        plan = rms.bwd_plan(n // width, width)
+        shape = rows_shape + (f"{plan.ctas} CTAs of {plan.threads}, "
+                              f"{plan.lanes} lanes a row",)
+        # dx is held to phase 2's tolerance, dscale (a sum over every row)
+        # to SUM_TOLERANCE.  Bytes: x and dy read, dx written, scale read,
+        # dscale written; ~12 fp32 operations an element.
+        check("rmsnorm_bwd", dtype_name, shape,
+              lambda: rms.rmsnorm_backward(dy, x, s),
+              lambda: rms.rmsnorm_bwd_ref(dy, x, s),
+              lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                          retain_graph=True),
+              (3 * n + 2 * width) * e, {"float32": 12 * n}, is_main,
+              compare=(lambda: rms.rmsnorm_backward(dy, x, s)[0],
+                       lambda: autograd_plain()[0]))
+        sum_check("rmsnorm_bwd dscale", dtype_name, shape,
+                  rms.rmsnorm_backward(dy, x, s)[1], autograd_plain()[1])
+        del x, dy, xl, wl, yl
+        # The backward's second launch alone: the column sum of its CTAs'
+        # fp32 partials [ctas, D] into dscale, a sum over every CTA
+        # (SUM_TOLERANCE).  Bytes: the partials read, dscale written.
+        part = rnd((plan.ctas, width), torch.float32)
+        check("rmsnorm_dscale", dtype_name, (plan.ctas, width),
+              lambda: rms.dscale_sum(part, dt),
+              lambda: rms.dscale_sum_ref(part, dt),
+              lambda: torch.sum(part, dim=0),
+              part.numel() * 4 + width * e, {"float32": part.numel()},
+              is_main, long_sums=True, library_note="fp32 out")
+        del part
+
+    def gemm_bwd_case(dtype_name, c, k_dim, n_dim, is_main):
+        """The grouped GEMM's backward, dx = dy w^T and dw = x^T dy, each
+        held to autograd of `moe_gemm_ref`; timed beside the written-out
+        plain backward and `torch.bmm` on transposed views.  Each runs
+        the kernel on a transposed copy (`transpose_pad`), whose time is
+        printed alone."""
+        mg = ops["moe_gemm"]
+        dt = getattr(torch, dtype_name)
+        e = torch.tensor([], dtype=dt).element_size()
+        x = rnd((64, c, k_dim), dt)
+        wf = torch.empty((64, k_dim, n_dim), device=dev)
+        torch.nn.init.trunc_normal_(wf, std=1.0, a=-2.0, b=2.0, generator=gen)
+        w = (wf / k_dim ** 0.5).to(dt)
+        del wf
+        dy = rnd((64, c, n_dim), dt, 0.1)
+
+        def autograd_plain(i):
+            xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+            return torch.autograd.grad(mg.moe_gemm_ref(xr, wr), (xr, wr),
+                                       dy)[i]
+        flops = 2 * 64 * c * k_dim * n_dim
+        if dtype_name == "float32":
+            flops = {"tf32": 3 * flops}
+        nbytes = (x.numel() + w.numel() + dy.numel()) * e
+        note = (64, c, k_dim, n_dim)
+        check("moe_gemm_dx", dtype_name, note + ("dy @ w^T",),
+              lambda: mg.grouped_gemm_dx(dy, w),
+              lambda: mg.moe_gemm_dx_ref(dy, w),
+              lambda: torch.bmm(dy, w.transpose(1, 2)), nbytes, flops,
+              is_main, long_sums=True,
+              compare=(lambda: mg.grouped_gemm_dx(dy, w),
+                       lambda: autograd_plain(0)))
+        check("moe_gemm_dw", dtype_name, note + ("x^T @ dy",),
+              lambda: mg.grouped_gemm_dw(x, dy),
+              lambda: mg.moe_gemm_dw_ref(x, dy),
+              lambda: torch.bmm(x.transpose(1, 2), dy), nbytes, flops,
+              is_main, long_sums=True,
+              compare=(lambda: mg.grouped_gemm_dw(x, dy),
+                       lambda: autograd_plain(1)))
+        # The transposed copies alone, dx's of w and dw's of x (its
+        # capacity padded with zero rows to a multiple of 8), each held to
+        # the same copy made by PyTorch: a read and a write of the operand.
+        c8 = -(-c // 8) * 8
+        check("moe_gemm_transpose", dtype_name, (64, k_dim, n_dim, "w^T"),
+              lambda: mg.transpose_pad(w, k_dim),
+              lambda: w.transpose(1, 2).contiguous(), None,
+              2 * w.numel() * e, 0, is_main)
+        check("moe_gemm_transpose", dtype_name, (64, c, k_dim, "x^T"),
+              lambda: mg.transpose_pad(x, c8),
+              lambda: F.pad(x.transpose(1, 2), (0, c8 - c)).contiguous(),
+              None, (x.numel() + 64 * k_dim * c8) * e, 0, False)
+        del x, w, dy
+        torch.cuda.empty_cache()
+
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
@@ -759,6 +925,14 @@ def kernel_checks(torch, ops):
                   lambda: F.rms_norm(x, (width,), w, 1e-6),
                   (2 * n + width) * e, 4 * n,
                   is_bf16 and rows_shape == (MAX_BATCH, PROMPT_LEN, 2048))
+
+        # RMSNorm's backward at the training rows of phase 12: llama's
+        # B 8 x S 512 tokens of d_model 2048 and olmoe's qk-norm rows
+        # (the same tokens x 16 heads, 128 wide).
+        for rows_shape in ((TRAIN_BATCH, TRAIN_SEQ, 2048),
+                           (TRAIN_BATCH, TRAIN_SEQ, 16, 128)):
+            rmsnorm_bwd_case(dtype_name, rows_shape,
+                             is_bf16 and rows_shape[-1] == 2048)
 
         # Decode attention: llama (32/8 heads x 64) at batch 4 and 28 over
         # the engine's 128-slot cache (a layer slice of the stacked cache)
@@ -838,6 +1012,13 @@ def kernel_checks(torch, ops):
                   (x.numel() + w.numel() + 64 * c * n_dim) * e,
                   flops, is_bf16 and (c, k_dim) == (8, 2048), long_sums=True)
             del x, w
+
+        # Its backward at olmoe's training shapes (phase 12(d)): B 8 x
+        # S 512 at capacity ceil(1.25 x 512 x 8 / 64) = 80 a row, 640 rows
+        # an expert; gate/up and down.
+        train_c = TRAIN_BATCH * 80
+        gemm_bwd_case(dtype_name, train_c, 2048, 1024, is_bf16)
+        gemm_bwd_case(dtype_name, train_c, 1024, 2048, False)
 
         # WKV6 at rwkv6-3b's heads (40 x 64) from a nonzero state: the
         # chunked prefill at batch 28 (64 tokens, chunk 32), a long prompt
@@ -1632,6 +1813,9 @@ def reset_counts(ops):
         m.launches = 0
     ops["decode_attention"].combine_launches = 0
     ops["flash_attention"].tc_launches = 0
+    ops["rmsnorm"].bwd_launches = ops["rmsnorm"].dscale_launches = 0
+    for name in ("dx_launches", "dw_launches", "transpose_launches"):
+        setattr(ops["moe_gemm"], name, 0)
 
 
 def counted_run(torch, ops, engine, run):
@@ -2976,6 +3160,282 @@ def encdec_full_width(torch, rt, ops, smi):
     del params
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training the transformer family on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 12: B sequences of S tokens a step, the steps of each run, the
+#: crash step and the checkpoint period of 12(b)'s crash and resume, and
+#: olmoe-1b-7b's depth in 12(d): its 16 layers hold 6.92 B parameters, 83
+#: GB at the reference's 12 bytes a parameter in training (bf16 param and
+#: grad, fp32 m and v), past the card's 80 GB; 4 layers hold 1.89 B.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+TRAIN_CRASH_AT, TRAIN_CKPT_EVERY = 5, 2
+OLMOE_TRAIN_LAYERS = 4
+#: 12(a): the narrow fp32 models' batch, AdamW steps and tolerances (the
+#: reference's flash-vs-naive gradient tolerance, tests/test_flash_equiv.py).
+NARROW_TRAIN = dict(batch=4, seq=32, steps=5)
+GRAD_NORM_TOL, GRAD_ELEM_TOL, NARROW_LOSS_TOL = 1e-3, 5e-3, 1e-4
+#: 12(b)-(c): resumed and remat losses against the uninterrupted run's.
+TRAIN_LOSS_TOL = 1e-3
+#: The counters a training step moves, by name.
+TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "rmsnorm_dscale", "moe_gemm",
+                  "moe_gemm_dx", "moe_gemm_dw", "moe_gemm_transpose",
+                  "flash_attention", "decode_attention", "wkv6", "rglru")
+
+
+def train_counts():
+    from repro_torch.kernels import backward_launch_counts, launch_counts
+    counts = {**launch_counts(), **backward_launch_counts()}
+    return {k: counts[k] for k in TRAIN_COUNTERS}
+
+
+def expected_train_launches(cfg, steps):
+    """Kernel launches of `steps` training steps of a transformer config
+    from the config alone.  A block's RMSNorms (two, the post-norms and
+    the qk-norm's two where it has them) and the final norm run forward
+    and backward once a step, the backward in two launches (the rows, then
+    dscale's column sum); remat recomputes the blocks' forward in the
+    backward, relaunching their norms, and under "full" their grouped
+    GEMMs (under "dots" the products' outputs are kept).  A MoE layer runs
+    three grouped products, each with a dx and a dw in the backward, and
+    each of those on one transposed copy."""
+    per_layer = 0
+    if cfg.norm == "rmsnorm":
+        per_layer = 2 + (2 if cfg.post_norms else 0)
+    per_layer += 2 if cfg.qk_norm else 0
+    norms = cfg.n_layers * per_layer + (cfg.norm == "rmsnorm")
+    gemms = 3 * cfg.n_layers if cfg.moe is not None else 0
+    rec_norms = cfg.n_layers * per_layer if cfg.remat != "none" else 0
+    rec_gemms = gemms if cfg.remat == "full" else 0
+    per_step = {"rmsnorm": norms + rec_norms, "rmsnorm_bwd": norms,
+                "rmsnorm_dscale": norms, "moe_gemm": gemms + rec_gemms,
+                "moe_gemm_dx": gemms, "moe_gemm_dw": gemms,
+                "moe_gemm_transpose": 2 * gemms}
+    return {k: steps * per_step.get(k, 0) for k in TRAIN_COUNTERS}
+
+
+def narrow_train_check(torch, rt, card="cuda"):
+    """12(a): llama3.2-1b-smoke and olmoe-1b-7b-smoke in fp32, the same
+    params and batch on the card and on the CPU (plain versions): every
+    leaf's gradient present, per leaf |g_card - g_cpu| <= 1e-3 |g_cpu| and
+    elementwise within 5e-3, then NARROW_TRAIN["steps"] AdamW steps
+    (`make_train_step`) whose losses agree within 1e-4 relative."""
+    import dataclasses
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import tree
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    for arch in ("llama3.2-1b", "olmoe-1b-7b"):
+        cfg = dataclasses.replace(rt.configs.get_smoke(arch),
+                                  dtype=torch.float32)
+        bundle = rt.bundle_for(cfg)
+        params = bundle.init_params(0, "cpu")
+        data = SyntheticLM(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=NARROW_TRAIN["seq"],
+            global_batch=NARROW_TRAIN["batch"], seed=1))
+        grads = {}
+        for side, device in (("card", card), ("cpu", "cpu")):
+            p = tree.tree_map(
+                lambda t: t.to(device, copy=True).requires_grad_(True),
+                params)
+            b = {k: v.to(device) for k, v in data.batch(0).items()}
+            loss = bundle.loss_fn(p, b)
+            grads[side] = (loss.item(), [
+                g.cpu() for g in torch.autograd.grad(loss, tree.leaves(p))])
+        worst_norm = worst_elem = 0.0
+        for (path, _), gc, gh in zip(tree.flatten_with_paths(params),
+                                     grads["card"][1], grads["cpu"][1]):
+            rel = ((gc - gh).norm() / gh.norm()).item()
+            elem = ((gc - gh).abs() - GRAD_ELEM_TOL * gh.abs()).max().item()
+            worst_norm, worst_elem = max(worst_norm, rel), max(worst_elem,
+                                                               elem)
+            if not (torch.isfinite(gc).all() and rel <= GRAD_NORM_TOL
+                    and elem <= GRAD_ELEM_TOL):
+                fail(f"train narrow {arch}: gradient of {path} on the card "
+                     f"off the CPU's: |dg|/|g| {rel:.3e}, elementwise "
+                     f"excess {elem:.3e}")
+        losses = {}
+        opt_cfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=2,
+                                      total_steps=NARROW_TRAIN["steps"])
+        step = make_train_step(bundle, opt_cfg)
+        for side, device in (("card", card), ("cpu", "cpu")):
+            # A copy: the update is in place.
+            p = tree.tree_map(lambda t: t.to(device, copy=True), params)
+            state, out = opt_mod.init(p), []
+            for i in range(NARROW_TRAIN["steps"]):
+                b = {k: v.to(device) for k, v in data.batch(i).items()}
+                p, state, metrics = step(p, state, b)
+                out.append(metrics["loss"].item())
+            losses[side] = out
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                       losses["cpu"]))
+        say(f"train narrow {arch} fp32: {len(grads['cpu'][1])} leaves, "
+            f"loss card {grads['card'][0]:.7f} cpu {grads['cpu'][0]:.7f}, "
+            f"worst leaf |dg|/|g| {worst_norm:.3e} (tol {GRAD_NORM_TOL:g}), "
+            f"worst elementwise excess {worst_elem:.3e} (tol "
+            f"{GRAD_ELEM_TOL:g} + {GRAD_ELEM_TOL:g} |g|); AdamW losses card "
+            f"{[round(x, 6) for x in losses['card']]} cpu "
+            f"{[round(x, 6) for x in losses['cpu']]} worst rel {rel:.3e} "
+            f"(tol {NARROW_LOSS_TOL:g})")
+        if not rel <= NARROW_LOSS_TOL:
+            fail(f"train narrow {arch}: AdamW losses on the card off the "
+                 f"CPU's by {rel:.3e} relative")
+
+
+def train_run(torch, ops, label, arch, smi, expect=True, **kw):
+    """One `run_training` call at B TRAIN_BATCH x S TRAIN_SEQ on the card
+    with every counter at 0 just before and read just after: the summary,
+    its counts and its peak memory.  `expect` False: the run must raise
+    the injected failure."""
+    from repro_torch.launch.train import run_training
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    reset_counts(ops)
+    t0 = time.monotonic()
+    try:
+        out = run_training(arch, smoke=False, global_batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, device="cuda", log_every=1,
+                           **kw)
+    except RuntimeError as e:
+        if expect or "injected failure" not in str(e):
+            raise
+        out = None
+    torch.cuda.synchronize()
+    counts = train_counts()
+    # The run's own peak: the peak less what was allocated before it.
+    peak = torch.cuda.max_memory_allocated() / 1e9 - held
+    wall = time.monotonic() - t0
+    if out is None:
+        say(f"train {label}: injected failure at step "
+            f"{kw['fail_at_step']} wall_s={wall:.2f} peak_gb={peak:.2f} "
+            f"counts={counts}")
+        return None, counts, peak
+    steps = out["steps_run"]
+    step_s = statistics.median(out["step_s"][1:] or out["step_s"])
+    say(f"train {label} ({smi}): steps {out['start_step']}.."
+        f"{out['start_step'] + steps - 1} step_ms={step_s * 1e3:.2f} "
+        f"first_step_ms={out['step_s'][0] * 1e3:.2f} tokens_per_s="
+        f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} peak_gb={peak:.2f} "
+        f"held_before_gb={held:.2f} "
+        f"wall_s={wall:.2f} losses={[round(x, 5) for x in out['losses']]} "
+        f"counts={counts}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"train {label}: a loss is not finite: {out['losses']}")
+    return out, counts, peak
+
+
+def train_on_card(torch, rt, ops, smi):
+    """Phase 12(b)-(d): llama3.2-1b as published through `run_training`,
+    its crash and resume, its remat modes, and olmoe-1b-7b at full width
+    cut to OLMOE_TRAIN_LAYERS layers.  Returns the launch totals of the
+    counted runs."""
+    import dataclasses
+    import shutil
+    totals = dict.fromkeys(TRAIN_COUNTERS, 0)
+
+    def held(label, counts, cfg, steps):
+        want = expected_train_launches(cfg, steps)
+        say(f"train {label} launch counts {counts} expected {want}")
+        if counts != want:
+            fail(f"train {label}: launch counts {counts} != {want}")
+        for k in totals:
+            totals[k] += counts[k]
+
+    llama = rt.configs.get("llama3.2-1b")
+    n_tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"train llama3.2-1b: {llama.n_layers} layers d_model "
+        f"{llama.d_model} {llama.n_heads}/{llama.n_kv_heads} x "
+        f"{llama.head_dim} vocab {llama.vocab_size} n_params "
+        f"{llama.n_params} bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps, attn_impl {llama.attn_impl}")
+    base, counts, _ = train_run(torch, ops, "llama3.2-1b", "llama3.2-1b",
+                                smi, steps=TRAIN_STEPS)
+    held("llama3.2-1b", counts, llama, TRAIN_STEPS)
+    step_s = statistics.median(base["step_s"][1:])
+    say(f"train llama3.2-1b model_flop_utilization="
+        f"{6 * llama.n_params * n_tokens / step_s / PEAK_FLOPS['bfloat16']:.4f}"
+        f" (6 N tokens / step_s / 989e12; {smi})")
+    if not base["losses"][-1] < base["losses"][0]:
+        fail(f"train llama3.2-1b: the last loss is not below the first: "
+             f"{base['losses']}")
+
+    # 12(b): a crash at TRAIN_CRASH_AT with a checkpoint every
+    # TRAIN_CKPT_EVERY steps, then the resume (one checkpoint kept: 12.4
+    # GB of bf16 params and fp32 moments each).
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(steps=TRAIN_STEPS, ckpt_dir=str(ckpt),
+              ckpt_every=TRAIN_CKPT_EVERY, ckpt_keep=1)
+    _, counts, _ = train_run(torch, ops, "llama3.2-1b crash", "llama3.2-1b",
+                             smi, expect=False, fail_at_step=TRAIN_CRASH_AT,
+                             **kw)
+    held("llama3.2-1b crash", counts, llama, TRAIN_CRASH_AT)
+    resumed, counts, _ = train_run(torch, ops, "llama3.2-1b resume",
+                                   "llama3.2-1b", smi, **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    start = resumed["start_step"]
+    held("llama3.2-1b resume", counts, llama, TRAIN_STEPS - start)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(resumed["losses"], base["losses"][start:]))
+    say(f"train llama3.2-1b resume: start_step {start} losses "
+        f"{[round(x, 5) for x in resumed['losses']]} uninterrupted "
+        f"{[round(x, 5) for x in base['losses'][start:]]} worst rel "
+        f"{rel:.3e} (tol {TRAIN_LOSS_TOL:g})")
+    if start < TRAIN_CRASH_AT - 1 or \
+            start + resumed["steps_run"] != TRAIN_STEPS \
+            or not rel <= TRAIN_LOSS_TOL:
+        fail(f"train llama3.2-1b: resume from step {start} off the "
+             f"uninterrupted run (worst rel {rel:.3e})")
+
+    # 12(c): remat "full" and "dots" against "none".
+    for remat in ("full", "dots"):
+        out, counts, _ = train_run(torch, ops, f"llama3.2-1b remat={remat}",
+                                   "llama3.2-1b", smi, steps=TRAIN_STEPS,
+                                   overrides={"remat": remat})
+        held(f"llama3.2-1b remat={remat}", counts,
+             dataclasses.replace(llama, remat=remat), TRAIN_STEPS)
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(out["losses"], base["losses"]))
+        say(f"train llama3.2-1b remat={remat}: worst rel loss vs none "
+            f"{rel:.3e} (tol {TRAIN_LOSS_TOL:g})")
+        if not rel <= TRAIN_LOSS_TOL:
+            fail(f"train llama3.2-1b remat={remat}: losses off remat=none "
+                 f"by {rel:.3e}")
+
+    # 12(d): olmoe-1b-7b at full width, cut in depth.
+    olmoe = dataclasses.replace(rt.configs.get("olmoe-1b-7b"),
+                                n_layers=OLMOE_TRAIN_LAYERS)
+    full = rt.configs.get("olmoe-1b-7b")
+    say(f"train olmoe-1b-7b: d_model {olmoe.d_model}, "
+        f"{olmoe.moe.n_experts} experts top-{olmoe.moe.top_k} d_ff "
+        f"{olmoe.moe.d_ff}, {olmoe.n_heads}/{olmoe.n_kv_heads} x "
+        f"{olmoe.head_dim}, qk-norm, vocab {olmoe.vocab_size}; cut to "
+        f"{OLMOE_TRAIN_LAYERS} of its {full.n_layers} layers: "
+        f"{full.n_params} parameters x 12 bytes (bf16 param and grad, "
+        f"fp32 m and v) = {12 * full.n_params / 1e9:.1f} GB > the card's "
+        f"80; {olmoe.n_params} parameters at {OLMOE_TRAIN_LAYERS} layers; "
+        f"capacity {olmoe.moe.capacity(TRAIN_SEQ)} a row, "
+        f"{TRAIN_BATCH * olmoe.moe.capacity(TRAIN_SEQ)} rows an expert")
+    out, counts, _ = train_run(torch, ops, "olmoe-1b-7b", "olmoe-1b-7b", smi,
+                               steps=TRAIN_STEPS,
+                               overrides={"n_layers": OLMOE_TRAIN_LAYERS})
+    held("olmoe-1b-7b", counts, olmoe, TRAIN_STEPS)
+    step_s = statistics.median(out["step_s"][1:])
+    say(f"train olmoe-1b-7b model_flop_utilization="
+        f"{6 * olmoe.n_active_params * n_tokens / step_s / PEAK_FLOPS['bfloat16']:.4f}"
+        f" (6 N_active tokens / step_s / 989e12, N_active "
+        f"{olmoe.n_active_params}; {smi})")
+    if not out["losses"][-1] < out["losses"][0]:
+        fail(f"train olmoe-1b-7b: the last loss is not below the first: "
+             f"{out['losses']}")
+    return totals
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     t_start = time.monotonic()
@@ -3116,6 +3576,14 @@ def main() -> None:
     encdec_full_width(torch, rt, ops, smi)
     say(f"phase 11 seconds={time.monotonic() - t11:.1f}")
 
+    # Phase 12, after phase 11 frees its weights
+    t12 = time.monotonic()
+    narrow_train_check(torch, rt)
+    train_totals = train_on_card(torch, rt, ops, smi)
+    for name in ("rmsnorm", "moe_gemm"):
+        totals[name] += train_totals[name]
+    say(f"phase 12 seconds={time.monotonic() - t12:.1f}")
+
     say(f"chip_smoke total_s={time.monotonic() - t_start:.1f}")
     record = []
     for name, (source, replaces) in KERNELS.items():
@@ -3123,6 +3591,11 @@ def main() -> None:
         record.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": totals[name],
                        **row})
+    for name, (source, replaces) in BACKWARD_KERNELS.items():
+        record.append({"name": name, "route": "cuda", "source": source,
+                       "replaces": replaces,
+                       "replaces_note": BACKWARD_NOTE,
+                       "launches": train_totals[name], **main_rows[name]})
     say(json.dumps({"kernels": record}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -54,6 +54,12 @@
 //    tiles wholly past C.  The grid runs an expert's row tiles of one
 //    column block side by side, so w comes from L2 after its first read.
 //
+// The backward (training) runs its two products on these same variants:
+// dx[e] = dy[e] w[e]^T on an explicitly transposed copy of w, and dw[e] =
+// x[e]^T dy[e] on a transposed copy of x whose contraction (the capacity)
+// is zero-padded to a multiple of 8; `moe_transpose` at the end of this file
+// makes both copies.
+//
 // K and N must be multiples of 8 so that every 16-byte vector is wholly
 // inside or wholly outside the matrix (and every TMA stride a multiple of
 // 16 bytes); the wrapper (kernels/moe_gemm/ops.py) checks that, and the
@@ -684,6 +690,54 @@ cudaError_t launch_skinny(const void* x, const void* w, void* y, int E, int C,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Transposed copy, for the backward
+// ---------------------------------------------------------------------------
+//
+// The backward's products dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T dy[e]
+// (kernels/moe_gemm/ops.py) run on the variants above, which take row-major
+// [E, C, K] x [E, K, N] operands; this kernel makes the transposed operand:
+// dst[e, j, i] = src[e, i, j] for src [E, R, Cc] and dst [E, Cc, Rp], with
+// the rows R <= i < Rp of dst's last axis zero (dw's contraction runs over
+// the capacity, padded to a multiple of 8).  A CTA of 32 x 8 threads moves
+// a 32 x 32 tile through shared memory (row pitch 33: no bank conflicts),
+// reading and writing 32 consecutive elements a warp.  Bound by bytes.
+
+constexpr int kTrTile = 32, kTrRows = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kTrTile * kTrRows)
+    moe_transpose(const T* __restrict__ src, T* __restrict__ dst, int R,
+                  int Cc, int Rp) {
+  __shared__ T tile[kTrTile][kTrTile + 1];
+  const long long e = blockIdx.z;
+  const int i0 = blockIdx.y * kTrTile, j0 = blockIdx.x * kTrTile;
+  const T* se = src + e * R * Cc;
+  T* de = dst + e * Cc * Rp;
+  for (int k = threadIdx.y; k < kTrTile; k += kTrRows) {
+    const int i = i0 + k, j = j0 + threadIdx.x;
+    tile[k][threadIdx.x] = i < R && j < Cc
+                               ? se[static_cast<long long>(i) * Cc + j]
+                               : from_f<T>(0.f);
+  }
+  __syncthreads();
+  for (int k = threadIdx.y; k < kTrTile; k += kTrRows) {
+    const int j = j0 + k, i = i0 + threadIdx.x;
+    if (j < Cc && i < Rp)
+      de[static_cast<long long>(j) * Rp + i] = tile[threadIdx.x][k];
+  }
+}
+
+template <typename T>
+cudaError_t launch_transpose(const void* src, void* dst, int E, int R, int Cc,
+                             int Rp, cudaStream_t s) {
+  const dim3 grid((Cc + kTrTile - 1) / kTrTile, (Rp + kTrTile - 1) / kTrTile,
+                  E);
+  moe_transpose<T><<<grid, dim3(kTrTile, kTrRows), 0, s>>>(
+      static_cast<const T*>(src), static_cast<T*>(dst), R, Cc, Rp);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int E, int C, int K, int N) {
   return E >= 1 && E <= 65535 && C >= 1 && K >= 1 && N >= 1 && K % 8 == 0 &&
          N % 8 == 0;
@@ -723,4 +777,20 @@ extern "C" int moe_gemm_decode_launch(const void* x, const void* w, void* y,
   moe_gemm_decode_bf16<<<ctas, kGvThreads, kGvSmem, s>>>(
       xmap, wmap, static_cast<__nv_bfloat16*>(y), E, C, K, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dst [E, Cc, Rp] = src [E, R, Cc] transposed, zero rows past R (Rp >= R).
+extern "C" int moe_transpose_launch(const void* src, void* dst, int dtype,
+                                    int E, int R, int Cc, int Rp,
+                                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E < 1 || E > 65535 || R < 1 || Cc < 1 || Rp < R ||
+      (Rp + kTrTile - 1) / kTrTile > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == repro::kFloat32)
+    return static_cast<int>(launch_transpose<float>(src, dst, E, R, Cc, Rp, s));
+  if (dtype == repro::kBFloat16)
+    return static_cast<int>(
+        launch_transpose<__nv_bfloat16>(src, dst, E, R, Cc, Rp, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

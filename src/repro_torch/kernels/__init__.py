@@ -29,3 +29,14 @@ def launch_counts() -> Dict[str, int]:
             "wkv6": wk.launches, "rglru": rg.launches,
             "decode_attention_combine": dec.combine_launches,
             "flash_attention_tc": fl.tc_launches}
+
+
+def backward_launch_counts() -> Dict[str, int]:
+    """The training backward's launch counters: RMSNorm's backward rows
+    and its dscale column sum, the grouped GEMM's dx and dw products and
+    the transposed copies they run on."""
+    return {"rmsnorm_bwd": rms.bwd_launches,
+            "rmsnorm_dscale": rms.dscale_launches,
+            "moe_gemm_dx": mg.dx_launches,
+            "moe_gemm_dw": mg.dw_launches,
+            "moe_gemm_transpose": mg.transpose_launches}

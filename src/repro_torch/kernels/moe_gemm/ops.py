@@ -1,13 +1,23 @@
 """Entry point of the grouped expert GEMM: `grouped_gemm(x, w)`, the
 signature of `repro.kernels.moe_gemm.ops.grouped_gemm` without its TPU-only
-`interpret` switch and block sizes.
+`interpret` switch and block sizes, differentiable in x and w.
 
 Kernel: `repro_torch/csrc/moe_gemm.cu`, which replaces the Pallas
 `_moe_gemm_kernel` (src/repro/kernels/moe_gemm/moe_gemm.py:21).  Its bf16
 decode variant (C <= 8) is a persistent grid over work units of (expert,
 columns) that `decode_plan` lays out from the shapes and the card's SM
-count.  A CPU tensor takes the plain version in `ref.py`; a CUDA tensor
-launches the kernel or raises.  `launches` counts kernel launches."""
+count.  A CPU tensor takes the plain version in `ref.py` (differentiable by
+autograd); a CUDA tensor launches the kernel or raises.
+
+Where autograd records (grad enabled and x or w requiring grad) the CUDA
+call goes through the custom op `repro_torch::grouped_gemm`, so that
+selective checkpointing can name it as a matrix product to keep
+(`models/transformer.py`, remat "dots"); its backward is `grouped_gemm_dx`
+and `grouped_gemm_dw`, which run the same kernel on transposed copies
+(`transpose_pad`, a kernel of the same file), never a library product.
+`launches` counts forward products, `dx_launches` and `dw_launches` the
+backward's products, `transpose_launches` the transposed copies (one for
+each dx and each dw)."""
 
 from __future__ import annotations
 
@@ -17,10 +27,17 @@ import torch
 
 from repro_torch._device import SM_COUNT, sm_count
 from repro_torch.kernels import _build
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.moe_gemm.ref import (moe_gemm_dw_ref,
+                                               moe_gemm_dx_ref, moe_gemm_ref)
 
 #: Kernel launches made through `grouped_gemm` (the CPU path does not count).
 launches = 0
+#: Products launched through `grouped_gemm_dx` and `grouped_gemm_dw`
+#: (each also launches one transposed copy, counted below).
+dx_launches = 0
+dw_launches = 0
+#: Transposed copies launched through `transpose_pad`.
+transpose_launches = 0
 
 #: Rows an expert (capacity C) up to which the decode variants run.
 DECODE_ROWS = 8
@@ -68,13 +85,9 @@ def decode_plan(e: int, c: int, k: int, n: int,
     return DecodePlan(units, min(units, sms))
 
 
-def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y[e] = x[e] @ w[e].  x: [E, C, K]; w: [E, K, N], both contiguous and
-    of one dtype (fp32 or bf16); K and N multiples of 8 on the card.
-    Returns [E, C, N] in x's dtype, accumulated in fp32."""
-    global launches
-    if x.device.type == "cpu":
-        return moe_gemm_ref(x, w)
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ w[e] on the card, through the variant that the dtype
+    and C pick; checks the operands and raises on what no variant takes."""
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"grouped_gemm: x on {x.device}, w on {w.device}; "
                          "both must be on one CUDA device")
@@ -105,5 +118,92 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                       out.data_ptr(), code, e, c, k, n,
                                       _build.stream())
     _build.check("moe_gemm", err)
+    return out
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    global launches
+    out = _product(x, w)
     launches += 1
+    return out
+
+
+@torch.library.custom_op("repro_torch::grouped_gemm", mutates_args=(),
+                         device_types="cuda")
+def _grouped_gemm_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _forward(x, w)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy):
+    x, w = ctx.saved_tensors
+    dx = grouped_gemm_dx(dy, w) if ctx.needs_input_grad[0] else None
+    dw = grouped_gemm_dw(x, dy) if ctx.needs_input_grad[1] else None
+    return dx, dw
+
+
+_grouped_gemm_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ w[e].  x: [E, C, K]; w: [E, K, N], both contiguous and
+    of one dtype (fp32 or bf16); K and N multiples of 8 on the card.
+    Returns [E, C, N] in x's dtype, accumulated in fp32; differentiable in
+    x and w."""
+    if x.device.type == "cpu":
+        return moe_gemm_ref(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _grouped_gemm_op(x, w)
+    return _forward(x, w)
+
+
+def transpose_pad(src: torch.Tensor, rows: int) -> torch.Tensor:
+    """src [E, R, C] -> [E, C, rows] with out[e, j, i] = src[e, i, j] for
+    i < R and zeros for R <= i < rows, by the transposed-copy kernel."""
+    global transpose_launches
+    e, r, c = src.shape
+    if src.device.type != "cuda" or not src.is_contiguous() or rows < r:
+        raise ValueError(f"transpose_pad: need a contiguous CUDA [E, R, C] "
+                         f"and rows >= R, got {tuple(src.shape)} on "
+                         f"{src.device}, rows {rows}")
+    out = torch.empty((e, c, rows), dtype=src.dtype, device=src.device)
+    err = _build.load("moe_gemm", "moe_transpose_launch")(
+        src.data_ptr(), out.data_ptr(), _build.dtype_code(src), e, r, c, rows,
+        _build.stream())
+    _build.check("moe_gemm transpose", err)
+    transpose_launches += 1
+    return out
+
+
+def grouped_gemm_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x's gradient: dx[e] = dy[e] @ w[e]^T for dy [E, C, N] and w
+    [E, K, N] -> [E, C, K] in dy's dtype.  On the card: the grouped GEMM on
+    an explicitly transposed copy of w ([E, N, K], `transpose_pad`)."""
+    global dx_launches
+    if dy.device.type == "cpu":
+        return moe_gemm_dx_ref(dy, w)
+    out = _product(dy.contiguous(), transpose_pad(w.contiguous(),
+                                                  w.shape[1]))
+    dx_launches += 1
+    return out
+
+
+def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """w's gradient: dw[e] = x[e]^T @ dy[e] for x [E, C, K] and dy
+    [E, C, N] -> [E, K, N] in x's dtype.  On the card: the grouped GEMM on
+    a transposed copy of x ([E, K, C8]) and dy, the contraction over C
+    zero-padded to C8, the next multiple of 8 (the kernel's K)."""
+    global dw_launches
+    if x.device.type == "cpu":
+        return moe_gemm_dw_ref(x, dy)
+    c = x.shape[1]
+    c8 = -(-c // 8) * 8
+    dy = dy.contiguous()
+    if c8 != c:
+        dy = torch.nn.functional.pad(dy, (0, 0, 0, c8 - c))
+    out = _product(transpose_pad(x.contiguous(), c8), dy)
+    dw_launches += 1
     return out

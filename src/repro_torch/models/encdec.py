@@ -32,7 +32,7 @@ cross K/V of the memory's T frames and `memory_len`, a decode step its
 token's self K/V at `pos`.  Stale entries of a reused cache are never
 read: cross attention masks frames past `memory_len`, self attention
 positions past `pos`.  `loss_fn` and `abstract_params` belong to
-training, which is not ported yet (ROADMAP.md).
+training, which is not ported yet (ROADMAP.md, Queue 1 item 9b).
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ rwkv6, rglru and encdec families).
 A `ModelBundle` exposes the family-agnostic surface the serving engine
 and tests consume:
 
-    bundle.init_params(seed, device)
+    bundle.init_params(seed, device)      bundle.abstract_params()
+    bundle.loss_fn(params, batch)         -> scalar loss
     bundle.forward(params, inputs)        -> (logits, aux)
     bundle.init_cache(batch, max_len, device)
     bundle.prefill(params, inputs, cache) -> (logits, cache)
@@ -12,6 +13,10 @@ and tests consume:
 
 `inputs` are tokens [B, S], or for the encdec family
 {"speech_embeddings": [B, T, D], "tokens": [B, S]}, as in the reference.
+Training (`loss_fn`, `abstract_params`) is ported for the transformer
+family; the others raise NotImplementedError: their forward runs kernels
+(WKV6, the RG-LRU) that have no backward yet, or, for the encoder-decoder,
+no loss is ported (ROADMAP.md, Queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import dataclasses
 from typing import Any
 
 from repro_torch.models import encdec, rglru, rwkv6, transformer
+
+#: The families whose training path is ported.
+TRAINABLE = ("transformer",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +38,23 @@ class ModelBundle:
 
     def init_params(self, seed: int = 0, device=None):
         return self.module.init_params(self.cfg, seed, device)
+
+    def require_training(self):
+        """The family's module where its training path is ported; raises
+        NotImplementedError otherwise."""
+        if self.family not in TRAINABLE:
+            raise NotImplementedError(
+                f"{self.family} ({self.cfg.name}): training is not ported "
+                "yet (ROADMAP.md, Queue 1 item 9b: rwkv6's and "
+                "recurrentgemma's loss_fn and remat with backward kernels "
+                "for wkv6 and rglru, encdec's loss_fn and abstract_params)")
+        return self.module
+
+    def abstract_params(self):
+        return self.require_training().abstract_params(self.cfg)
+
+    def loss_fn(self, params, batch):
+        return self.require_training().loss_fn(self.cfg, params, batch)
 
     def forward(self, params, inputs, **kw):
         return self.module.forward(self.cfg, params, inputs, **kw)

@@ -40,7 +40,8 @@ window) (a ring buffer when L == window), and `prefill` / `decode_step`
 update it in place.  A caller that reuses a cache zeroes the recurrent
 part (`STATE_KEYS`) before the next prompt, as the serving engine does.
 
-Training (`loss_fn`, remat) and prefix embeddings are not ported.
+Training (`loss_fn`, remat; ROADMAP.md Queue 1 item 9b, with backward
+kernels) and prefix embeddings are not ported.
 """
 
 from __future__ import annotations

@@ -28,7 +28,8 @@ fresh copy (the WKV state of rwkv6-3b at batch 28 is 0.59 GB).  A caller
 that reuses a state buffer zeroes it before the next prompt, as the
 serving engine does.
 
-Training (`loss_fn`, remat) and prefix embeddings are not ported.
+Training (`loss_fn`, remat; ROADMAP.md Queue 1 item 9b, with backward
+kernels) and prefix embeddings are not ported.
 """
 
 from __future__ import annotations

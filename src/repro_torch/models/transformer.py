@@ -7,10 +7,12 @@ sandwich post-norms, sqrt(d) embedding scale, query scale) and MoE FFNs
 (olmoe, mixtral with ring-cached local layers), with a native or int8 KV
 cache.
 
-Public API (used by serving/ and the tests):
+Public API (used by serving/, launch/ and the tests):
     init_params(cfg, seed, device)       -> params
+    abstract_params(cfg)                 -> params on the meta device
     params_from_jax(cfg, tree, device)   -> params from JAX's params tree
     forward(cfg, params, tokens, prefix_embeddings=None) -> (logits, aux)
+    loss_fn(cfg, params, batch)          -> scalar loss
     init_cache(cfg, batch, max_len, device) -> cache
     prefill(cfg, params, tokens, cache)  -> (last logits, cache)
     decode_step(cfg, params, token, cache, pos) -> (logits, cache)
@@ -23,17 +25,25 @@ groups, `"global"` and `"local"` (each `[n, B, S, KVH, D]`, present when
 the pattern has such layers; local layers get a ring of `sliding_window`
 slots when the cache is longer), and layer i writes its slice of its
 group in place, at its index among the group's layers in layer order
-(`layer_slots`), as the reference's `_split_layers` orders them.  The
-reference's `loss_fn` and `abstract_params` belong to training, which is
-not ported yet (ROADMAP.md).
+(`layer_slots`), as the reference's `_split_layers` orders them.
+
+Training differentiates `forward` through autograd: the RMSNorm and
+grouped-GEMM kernels carry backward kernels of their own
+(`kernels/rmsnorm/ops.py`, `kernels/moe_gemm/ops.py`).  `cfg.remat`
+recomputes each block in the backward: "full" keeps only the block's
+input (`torch.utils.checkpoint`, the reference's `nothing_saveable`),
+"dots" also keeps the outputs of its matrix products (selective
+checkpointing, the reference's `checkpoint_dots`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import common, flash
@@ -50,7 +60,8 @@ STATE_KEYS = ()
 #: The values each enumerated field takes.
 _CHOICES = {"norm": ("rmsnorm", "layernorm"), "mlp_kind": ("gated", "dense"),
             "attn_impl": ("naive", "flash"),
-            "kv_cache_dtype": ("native", "int8")}
+            "kv_cache_dtype": ("native", "int8"),
+            "remat": ("none", "dots", "full")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +96,8 @@ class TransformerConfig:
     num_prefix_embeddings: int = 0  # VLM stub prefix slots
     dtype: Any = torch.bfloat16
     max_seq_len: int = 131072
+    # remat policy for training: "none" | "dots" | "full"
+    remat: str = "none"
 
     def __post_init__(self):
         for field, allowed in _CHOICES.items():
@@ -170,9 +183,11 @@ def layer_slots(cfg: TransformerConfig) -> List[Tuple[str, int]]:
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device=None) -> Params:
     """Random weights from a torch generator seeded with `seed`, made on
-    `device` (CUDA unless told otherwise)."""
+    `device` (CUDA unless told otherwise; on the meta device, shapes and
+    dtypes alone)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     spec = cfg.attn_spec()
     norm_init, _ = common.make_norm(cfg.norm)
     d, dt = cfg.d_model, cfg.dtype
@@ -200,6 +215,12 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
         params["lm_head"] = common.embed_init(gen, cfg.vocab_size, d, dt,
                                               dev)
     return params
+
+
+def abstract_params(cfg: TransformerConfig) -> Params:
+    """The params tree on the meta device: every leaf's shape and dtype, no
+    memory (the template a checkpoint is restored into)."""
+    return init_params(cfg, 0, "meta")
 
 
 #: Leaves whose dtype the reference's init fixes whatever `cfg.dtype` is
@@ -275,6 +296,32 @@ def _embed(cfg: TransformerConfig, params: Params, tokens: Tensor,
 # Forward (full sequence)
 # ---------------------------------------------------------------------------
 
+#: The ops whose outputs remat "dots" keeps: the matrix products (aten's
+#: matmul decomposes into these) and the grouped GEMM's custom op.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+         torch.ops.repro_torch.grouped_gemm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig, fn):
+    """`fn` recomputed in the backward as `cfg.remat` says (where autograd
+    records; otherwise `fn` itself)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    return functools.partial(torch_checkpoint.checkpoint, fn,
+                             use_reentrant=False, **kw)
+
+
 def forward(cfg: TransformerConfig, params: Params, tokens: Tensor,
             prefix_embeddings: Optional[Tensor] = None
             ) -> Tuple[Tensor, Tensor]:
@@ -283,12 +330,14 @@ def forward(cfg: TransformerConfig, params: Params, tokens: Tensor,
     Returns (logits [B, S, V] fp32, the MoE aux loss summed over layers,
     fp32; 0 for dense FFNs).  Attention is the naive masked softmax, or
     with `attn_impl == "flash"` the blocked reference of `models/flash.py`,
-    as in the reference; local layers see the sliding window."""
+    as in the reference; local layers see the sliding window.  Each block
+    is recomputed in the backward as `cfg.remat` says."""
     x = _embed(cfg, params, tokens, prefix_embeddings)
     b, s, _ = x.shape
     spec = cfg.attn_spec()
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(cfg, _block)
     for lp, local in zip(params["layers"], cfg.is_local):
         lspec = _layer_spec(cfg, spec, local)
 
@@ -301,12 +350,22 @@ def forward(cfg: TransformerConfig, params: Params, tokens: Tensor,
                                           device=x.device)
                 ctx = common.mha_attend(q, k, v, mask.expand(b, s, s), lspec)
             return common.attn_out(lp["attn"], lspec, ctx)
-        x, layer_aux = _block(cfg, lp, x, attend)
+        x, layer_aux = block(cfg, lp, x, attend)
         if layer_aux is not None:
             aux = aux + layer_aux
     if prefix_embeddings is not None:
         x = x[:, prefix_embeddings.shape[1]:]
     return _head(cfg, params, x), aux
+
+
+def loss_fn(cfg: TransformerConfig, params: Params,
+            batch: Dict[str, Tensor]) -> Tensor:
+    """Mean next-token cross entropy plus the MoE aux loss, fp32 scalar.
+    `batch`: "tokens" and "labels" [B, S] int, optional
+    "prefix_embeddings" [B, P, D]."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("prefix_embeddings"))
+    return common.cross_entropy_loss(logits, batch["labels"].long()) + aux
 
 
 # ---------------------------------------------------------------------------

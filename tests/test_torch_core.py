@@ -225,7 +225,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     for mod in ("core/priors.py", "platform/fleet.py",
                 "serving/simulator.py", "launch/serve.py",
                 "faults/plan.py", "faults/injectors.py",
-                "models/encdec.py"):
+                "models/encdec.py", "training/optimizer.py",
+                "training/data.py", "training/checkpoint.py",
+                "training/compression.py", "training/elastic.py",
+                "training/tree.py", "launch/train.py", "launch/steps.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for mod in _imported_modules(f):

@@ -1033,3 +1033,138 @@ def test_nvml_reads_finite_watts_within_the_power_limit(card):
     cuda_uuid = str(torch.cuda.get_device_properties(0).uuid)
     assert uuid.lower().removeprefix("gpu-") == \
         cuda_uuid.lower().removeprefix("gpu-")
+
+
+# --- training: the backward kernels and gradients on the card ----------------
+
+#: dscale is a sum over every row: held as the grouped GEMM's sums are,
+#: |err| <= tol * (1 + |ref|).
+SUM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _sum_close(out, ref, tol):
+    out, ref = out.float(), ref.float()
+    err = ((out - ref).abs() / (1 + ref.abs())).max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_backward_kernel_matches_plain(rnd, dtype):
+    """dx and dscale of the backward kernel against `rmsnorm_bwd_ref`:
+    llama's d_model rows, olmoe's 128-wide qk-norm rows (a warp a row),
+    rows past a CTA's grid-stride loop (9000 x 64), a width off every
+    power of two (96), and a dy sliced along the sequence (a row stride
+    the kernel takes).  The same inputs give the same bits twice."""
+    dt, tol = DTYPES[dtype]
+    before = rms_ops.bwd_launches, rms_ops.dscale_launches
+    cases = ((8, 64, 2048), (7, 5, 16, 128), (9000, 64), (3, 96))
+    for shape in cases:
+        x, s = rnd(shape, dt), rnd(shape[-1:], dt, 0.1)
+        dy = rnd(shape, dt)
+        dx, ds = rms_ops.rmsnorm_backward(dy, x, s)
+        rdx, rds = rms_ops.rmsnorm_bwd_ref(dy, x, s)
+        torch.testing.assert_close(dx, rdx, rtol=tol, atol=tol)
+        _sum_close(ds, rds, SUM_TOL[dtype])
+        dx2, ds2 = rms_ops.rmsnorm_backward(dy, x, s)
+        assert torch.equal(dx, dx2) and torch.equal(ds, ds2), shape
+    x, s = rnd((4, 40, 256), dt), rnd((256,), dt, 0.1)
+    dy = rnd((4, 48, 256), dt)[:, 8:]          # not viewable as rows
+    dx, ds = rms_ops.rmsnorm_backward(dy, x, s)
+    rdx, rds = rms_ops.rmsnorm_bwd_ref(dy, x, s)
+    torch.testing.assert_close(dx, rdx, rtol=tol, atol=tol)
+    _sum_close(ds, rds, SUM_TOL[dtype])
+    calls = 2 * len(cases) + 1      # each a rows and a column-sum launch
+    assert (rms_ops.bwd_launches, rms_ops.dscale_launches) == (
+        before[0] + calls, before[1] + calls)
+
+
+@pytest.mark.requires_cuda
+def test_rmsnorm_is_differentiable_on_the_card(rnd):
+    """Autograd through `rmsnorm` on CUDA tensors reaches x and scale
+    through the backward kernel, and a call without grad launches the
+    forward alone."""
+    x = rnd((6, 10, 512), torch.float32).requires_grad_(True)
+    s = rnd((512,), torch.float32, 0.1).requires_grad_(True)
+    fwd, bwd = rms_ops.launches, rms_ops.bwd_launches
+    dsc = rms_ops.dscale_launches
+    y = rms_ops.rmsnorm(x, s)
+    dy = torch.randn_like(y)
+    y.backward(dy)
+    rdx, rds = rms_ops.rmsnorm_bwd_ref(dy, x.detach(), s.detach())
+    torch.testing.assert_close(x.grad, rdx, rtol=2e-5, atol=2e-5)
+    _sum_close(s.grad, rds, 1e-4)
+    assert (rms_ops.launches, rms_ops.bwd_launches,
+            rms_ops.dscale_launches) == (fwd + 1, bwd + 1, dsc + 1)
+    with torch.no_grad():
+        rms_ops.rmsnorm(x, s)
+    assert (rms_ops.launches, rms_ops.bwd_launches) == (fwd + 2, bwd + 1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(GEMM_DTYPES))
+def test_grouped_gemm_backward_matches_plain(rnd, dtype):
+    """dx and dw through the kernel's variants against the plain
+    backward: a capacity off a multiple of 8 (padded for dw), C <= 8 (the
+    decode / skinny variants for dx), two row blocks of dw's K (296), and
+    autograd through `grouped_gemm` (the custom op) giving the same."""
+    dt, tol = GEMM_DTYPES[dtype]
+    shapes = ((3, 37, 64, 96), (4, 5, 40, 48), (2, 24, 296, 136),
+              (64, 20, 256, 128))
+    d0, w0, t0 = mg_ops.dx_launches, mg_ops.dw_launches, \
+        mg_ops.transpose_launches
+    for e, c, k, n in shapes:
+        x, w = rnd((e, c, k), dt), rnd((e, k, n), dt, k ** -0.5)
+        dy = rnd((e, c, n), dt)
+        _sum_close(mg_ops.grouped_gemm_dx(dy, w), mg_ops.moe_gemm_dx_ref(dy, w),
+                   tol)
+        _sum_close(mg_ops.grouped_gemm_dw(x, dy), mg_ops.moe_gemm_dw_ref(x, dy),
+                   tol)
+    n_calls = len(shapes)
+    assert (mg_ops.dx_launches, mg_ops.dw_launches,
+            mg_ops.transpose_launches) == (d0 + n_calls, w0 + n_calls,
+                                           t0 + 2 * n_calls)
+    x = rnd((3, 37, 64), dt).requires_grad_(True)
+    w = rnd((3, 64, 96), dt, 0.125).requires_grad_(True)
+    y = mg_ops.grouped_gemm(x, w)
+    dy = torch.randn_like(y)
+    y.backward(dy)
+    assert torch.equal(x.grad, mg_ops.grouped_gemm_dx(dy, w.detach()))
+    assert torch.equal(w.grad, mg_ops.grouped_gemm_dw(x.detach(), dy))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b"])
+def test_gradient_reaches_every_leaf_on_the_card(card, arch):
+    """The smoke model's loss and gradients in fp32, card against CPU
+    (plain versions), on the same params and batch: every leaf has a
+    gradient within 1e-3 of the CPU's norm (a gradient cut at a kernel
+    fails that), and the kernels' backward ran."""
+    from repro_torch.training import tree
+    cfg = dataclasses.replace(torch_configs.get_smoke(arch),
+                              dtype=torch.float32)
+    bundle = bundle_for(cfg)
+    params = bundle.init_params(0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (2, 17), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def grads(device):
+        p = tree.tree_map(
+            lambda t: t.to(device, copy=True).requires_grad_(True), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss = bundle.loss_fn(p, b)
+        return loss, torch.autograd.grad(loss, tree.leaves(p))
+    before = launch_counts()
+    bwd = rms_ops.bwd_launches, mg_ops.dx_launches, mg_ops.dw_launches
+    loss_c, g_card = grads("cuda")
+    loss_h, g_cpu = grads("cpu")
+    assert rms_ops.bwd_launches > bwd[0]
+    assert launch_counts()["rmsnorm"] > before["rmsnorm"]
+    if cfg.moe is not None:
+        assert mg_ops.dx_launches > bwd[1] and mg_ops.dw_launches > bwd[2]
+    assert abs(loss_c.item() - loss_h.item()) <= 1e-4 * abs(loss_h.item())
+    for (path, _), gc, gh in zip(tree.flatten_with_paths(params), g_card,
+                                 g_cpu):
+        gc = gc.cpu()
+        assert (gc - gh).norm() <= 1e-3 * gh.norm(), path
