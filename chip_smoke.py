@@ -239,26 +239,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      olmoe-1b-7b at full width (64 experts top-8, qk-norm) cut to 4 of its
      16 layers (the whole model's 6.92 B parameters at 12 bytes each in
      training, 83 GB, exceed the card), 8 steps with (b)'s outputs and the
-     grouped GEMM's forward, dx, dw and transposed-copy launches exact.
+     grouped GEMM's forward, dx and dw launches exact, and no transposed
+     copy (bf16 dx and dw read their operands in place); after (b) and
+     after (d) one profiled step (`train_profile`: busy share and the top
+     kernels by device time, `train_top`).
      Phase 2 holds the backward kernels to autograd of their plain
      versions at these shapes: RMSNorm's (dx, and dscale to
-     SUM_TOLERANCE) at llama's 4096 x 2048 rows and olmoe's 65536 x 128
-     qk-norm rows, the grouped GEMM's dx and dw at
-     `[64,640,2048]@[64,2048,1024]` and `[64,640,1024]@[64,1024,2048]`
-     (SUM_TOLERANCE), each timed beside its written-out plain backward
-     and a library call (autograd's backward of `F.rms_norm`; `torch.bmm`
-     on transposed views); and each backward's second kernel alone:
-     RMSNorm's dscale column sum (beside `torch.sum`) and the grouped
-     GEMM's transposed copies (beside PyTorch's own copy).
+     SUM_TOLERANCE; one kernel a call, as the profiler sees it) at llama's
+     4096 x 2048 rows and olmoe's 65536 x 128 qk-norm rows, the grouped
+     GEMM's dx and dw at `[64,640,2048]@[64,2048,1024]` and
+     `[64,640,1024]@[64,1024,2048]` (SUM_TOLERANCE; in bf16 no transposed
+     copy launched), each giving the same bits on two calls, each timed
+     beside its written-out plain backward and a library call (autograd's
+     backward of `F.rms_norm`; `torch.bmm` on transposed views), and the
+     grouped GEMM's forward at those shapes (training's capacity, 640
+     rows an expert) beside `torch.bmm`; in fp32 also the transposed
+     copies the fp32 dx and dw run on (beside PyTorch's own copy).
 
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the paths'
-counted runs, phases 7 and 12 included; the backward kernels'
-rows, `rmsnorm_bwd`, `rmsnorm_dscale`, `moe_gemm_dx`, `moe_gemm_dw` and
-`moe_gemm_transpose`, count phase 12's runs and are timed at llama's
-training rows and olmoe's gate/up training product, `rmsnorm_bwd`'s and
-`moe_gemm_dx`/`_dw`'s times the whole backward call, its second kernel
-included; times at the llama shapes for the attention and norm
+counted runs, phases 7 and 12 included; the backward kernels' rows,
+`rmsnorm_bwd`, `moe_gemm_dx` and `moe_gemm_dw`, count phase 12's runs and
+are timed at llama's training rows and olmoe's gate/up training product;
+times at the llama shapes for the attention and norm
 kernels, at olmoe's decode gate/up product for the grouped GEMM, at
 rwkv6-3b's decode step for WKV6 and at recurrentgemma-9b's decode step
 for the RG-LRU kernel's gated front end, the one the path runs), and the
@@ -329,10 +332,6 @@ BACKWARD_KERNELS = {
                     "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
     "moe_gemm_dw": ("src/repro_torch/csrc/moe_gemm.cu",
                     "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
-    "rmsnorm_dscale": ("src/repro_torch/csrc/rmsnorm.cu",
-                       "src/repro/kernels/rmsnorm/rmsnorm.py:19"),
-    "moe_gemm_transpose": ("src/repro_torch/csrc/moe_gemm.cu",
-                           "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
 }
 BACKWARD_NOTE = ("no Pallas backward exists (the reference trains through "
                  "pure JAX); this kernel is the gradient of the port's "
@@ -803,6 +802,47 @@ def kernel_checks(torch, ops):
         if not scaled <= tol:
             failures.append(f"{name} {dtype_name} {shape}: err={scaled}")
 
+    def rmsnorm_bwd_one_launch():
+        """RMSNorm's backward is one kernel a call, dx and dscale both: one
+        call at each of phase 2's training rows, bf16 and fp32, in one
+        profiled window before anything else of phase 2 runs (a window
+        opened after the timing loops below recorded no device events on
+        this machine), each call seen as one `rmsnorm_bwd_kernel`."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        rms = ops["rmsnorm"]
+        calls = []
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            for shape in ((TRAIN_BATCH, TRAIN_SEQ, 2048),
+                          (TRAIN_BATCH, TRAIN_SEQ, 16, 128)):
+                x, s, dy = rnd(shape, dt), rnd(shape[-1:], dt, 0.1), \
+                    rnd(shape, dt)
+                calls.append((dtype_name, shape, x, s, dy))
+                rms.rmsnorm_backward(dy, x, s)      # built and ticketed
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _, _, x, s, dy in calls:
+                rms.rmsnorm_backward(dy, x, s)
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA
+                 and not ev.is_user_annotation]
+        say(f"  (rmsnorm_bwd: {len(calls)} calls, bf16 and fp32 at "
+            f"{[c[1] for c in calls[:2]]}, run {len(names)} kernels: "
+            f"{[n.split('(')[0] for n in names]})")
+        if len(names) != len(calls) or not all(
+                "rmsnorm_bwd_kernel" in n for n in names):
+            failures.append(f"rmsnorm_bwd: {len(calls)} calls ran "
+                            f"{len(names)} kernels: {names}")
+
+    def same_bits(name, dtype_name, shape, fn):
+        """Two calls of `fn` on the same inputs give the same bits."""
+        a, b = flat(fn()), flat(fn())
+        if not torch.equal(a, b):
+            failures.append(f"{name} {dtype_name} {shape}: two calls differ")
+
     def rmsnorm_bwd_case(dtype_name, rows_shape, is_main):
         """RMSNorm's backward kernel (dx and dscale) held to autograd of
         the plain forward; timed beside the written-out plain backward and
@@ -821,9 +861,12 @@ def kernel_checks(torch, ops):
         wl = (1.0 + s).detach().requires_grad_()
         yl = F.rms_norm(xl, (width,), wl, 1e-6)
         n = x.numel()
-        plan = rms.bwd_plan(n // width, width)
-        shape = rows_shape + (f"{plan.ctas} CTAs of {plan.threads}, "
-                              f"{plan.lanes} lanes a row",)
+        plan = rms.bwd_plan(n // width, width, e, width, width, True,
+                            rms.sm_count(x.device))
+        shape = rows_shape + (f"one launch: {plan.ctas} CTAs of "
+                              f"{plan.threads}, {plan.lanes} lanes x "
+                              f"{plan.items * plan.vec} values a row, "
+                              f"groups of {plan.group}",)
         # dx is held to phase 2's tolerance, dscale (a sum over every row)
         # to SUM_TOLERANCE.  Bytes: x and dy read, dx written, scale read,
         # dscale written; ~12 fp32 operations an element.
@@ -837,28 +880,21 @@ def kernel_checks(torch, ops):
                        lambda: autograd_plain()[0]))
         sum_check("rmsnorm_bwd dscale", dtype_name, shape,
                   rms.rmsnorm_backward(dy, x, s)[1], autograd_plain()[1])
+        same_bits("rmsnorm_bwd", dtype_name, shape,
+                  lambda: rms.rmsnorm_backward(dy, x, s))
         del x, dy, xl, wl, yl
-        # The backward's second launch alone: the column sum of its CTAs'
-        # fp32 partials [ctas, D] into dscale, a sum over every CTA
-        # (SUM_TOLERANCE).  Bytes: the partials read, dscale written.
-        part = rnd((plan.ctas, width), torch.float32)
-        check("rmsnorm_dscale", dtype_name, (plan.ctas, width),
-              lambda: rms.dscale_sum(part, dt),
-              lambda: rms.dscale_sum_ref(part, dt),
-              lambda: torch.sum(part, dim=0),
-              part.numel() * 4 + width * e, {"float32": part.numel()},
-              is_main, long_sums=True, library_note="fp32 out")
-        del part
 
     def gemm_bwd_case(dtype_name, c, k_dim, n_dim, is_main):
         """The grouped GEMM's backward, dx = dy w^T and dw = x^T dy, each
         held to autograd of `moe_gemm_ref`; timed beside the written-out
-        plain backward and `torch.bmm` on transposed views.  Each runs
-        the kernel on a transposed copy (`transpose_pad`), whose time is
-        printed alone."""
+        plain backward and `torch.bmm` on transposed views.  In bf16 both
+        read their operands in place (no transposed copy may be launched);
+        in fp32 each runs on a transposed copy (`transpose_pad`), whose
+        time is printed alone.  The forward at the same shapes too."""
         mg = ops["moe_gemm"]
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
+        is_bf16 = dtype_name == "bfloat16"
         x = rnd((64, c, k_dim), dt)
         wf = torch.empty((64, k_dim, n_dim), device=dev)
         torch.nn.init.trunc_normal_(wf, std=1.0, a=-2.0, b=2.0, generator=gen)
@@ -871,39 +907,68 @@ def kernel_checks(torch, ops):
             return torch.autograd.grad(mg.moe_gemm_ref(xr, wr), (xr, wr),
                                        dy)[i]
         flops = 2 * 64 * c * k_dim * n_dim
-        if dtype_name == "float32":
+        if not is_bf16:
             flops = {"tf32": 3 * flops}
         nbytes = (x.numel() + w.numel() + dy.numel()) * e
         note = (64, c, k_dim, n_dim)
-        check("moe_gemm_dx", dtype_name, note + ("dy @ w^T",),
+        sms = mg.sm_count(x.device)
+        dx_note = dw_note = ("transposed copy",)
+        if is_bf16:
+            px = mg.bwd_plan(64, c, k_dim, sms)
+            pw = mg.bwd_plan(64, k_dim, n_dim, sms)
+            dx_note = (f"in place, {px.tiles} tiles of {mg.BWD_ROWS} x "
+                       f"{mg.BWD_COLS} on {px.ctas} CTAs",)
+            dw_note = (f"in place, {pw.tiles} tiles of {mg.BWD_ROWS} x "
+                       f"{mg.BWD_COLS} on {pw.ctas} CTAs",)
+        copies = mg.transpose_launches
+        check("moe_gemm_dx", dtype_name, note + ("dy @ w^T",) + dx_note,
               lambda: mg.grouped_gemm_dx(dy, w),
               lambda: mg.moe_gemm_dx_ref(dy, w),
               lambda: torch.bmm(dy, w.transpose(1, 2)), nbytes, flops,
               is_main, long_sums=True,
               compare=(lambda: mg.grouped_gemm_dx(dy, w),
                        lambda: autograd_plain(0)))
-        check("moe_gemm_dw", dtype_name, note + ("x^T @ dy",),
+        check("moe_gemm_dw", dtype_name, note + ("x^T @ dy",) + dw_note,
               lambda: mg.grouped_gemm_dw(x, dy),
               lambda: mg.moe_gemm_dw_ref(x, dy),
               lambda: torch.bmm(x.transpose(1, 2), dy), nbytes, flops,
               is_main, long_sums=True,
               compare=(lambda: mg.grouped_gemm_dw(x, dy),
                        lambda: autograd_plain(1)))
-        # The transposed copies alone, dx's of w and dw's of x (its
-        # capacity padded with zero rows to a multiple of 8), each held to
-        # the same copy made by PyTorch: a read and a write of the operand.
-        c8 = -(-c // 8) * 8
-        check("moe_gemm_transpose", dtype_name, (64, k_dim, n_dim, "w^T"),
-              lambda: mg.transpose_pad(w, k_dim),
-              lambda: w.transpose(1, 2).contiguous(), None,
-              2 * w.numel() * e, 0, is_main)
-        check("moe_gemm_transpose", dtype_name, (64, c, k_dim, "x^T"),
-              lambda: mg.transpose_pad(x, c8),
-              lambda: F.pad(x.transpose(1, 2), (0, c8 - c)).contiguous(),
-              None, (x.numel() + 64 * k_dim * c8) * e, 0, False)
+        same_bits("moe_gemm_dx", dtype_name, note,
+                  lambda: mg.grouped_gemm_dx(dy, w))
+        same_bits("moe_gemm_dw", dtype_name, note,
+                  lambda: mg.grouped_gemm_dw(x, dy))
+        torch.cuda.synchronize()
+        if is_bf16 and mg.transpose_launches != copies:
+            failures.append(f"moe_gemm_dx/dw bf16 {note}: "
+                            f"{mg.transpose_launches - copies} transposed "
+                            f"copies launched")
+        # The forward at training's capacity (C = 640: three 256-row
+        # blocks of the bf16 prefill variant).
+        check("moe_gemm", dtype_name, note + ("forward, training capacity",),
+              lambda: mg.grouped_gemm(x, w), lambda: mg.moe_gemm_ref(x, w),
+              lambda: torch.bmm(x, w),
+              (x.numel() + w.numel() + dy.numel()) * e, flops, False,
+              long_sums=True)
+        if not is_bf16:
+            # The fp32 route's transposed copies alone, dx's of w and dw's
+            # of x (its capacity padded with zero rows to a multiple of
+            # 8), each held to the same copy made by PyTorch: a read and a
+            # write of the operand.
+            c8 = -(-c // 8) * 8
+            check("moe_gemm_transpose", dtype_name, (64, k_dim, n_dim, "w^T"),
+                  lambda: mg.transpose_pad(w, k_dim),
+                  lambda: w.transpose(1, 2).contiguous(), None,
+                  2 * w.numel() * e, 0, False)
+            check("moe_gemm_transpose", dtype_name, (64, c, k_dim, "x^T"),
+                  lambda: mg.transpose_pad(x, c8),
+                  lambda: F.pad(x.transpose(1, 2), (0, c8 - c)).contiguous(),
+                  None, (x.numel() + 64 * k_dim * c8) * e, 0, False)
         del x, w, dy
         torch.cuda.empty_cache()
 
+    rmsnorm_bwd_one_launch()
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         e = torch.tensor([], dtype=dt).element_size()
@@ -1813,7 +1878,7 @@ def reset_counts(ops):
         m.launches = 0
     ops["decode_attention"].combine_launches = 0
     ops["flash_attention"].tc_launches = 0
-    ops["rmsnorm"].bwd_launches = ops["rmsnorm"].dscale_launches = 0
+    ops["rmsnorm"].bwd_launches = 0
     for name in ("dx_launches", "dw_launches", "transpose_launches"):
         setattr(ops["moe_gemm"], name, 0)
 
@@ -3179,7 +3244,7 @@ GRAD_NORM_TOL, GRAD_ELEM_TOL, NARROW_LOSS_TOL = 1e-3, 5e-3, 1e-4
 #: 12(b)-(c): resumed and remat losses against the uninterrupted run's.
 TRAIN_LOSS_TOL = 1e-3
 #: The counters a training step moves, by name.
-TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "rmsnorm_dscale", "moe_gemm",
+TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "moe_gemm",
                   "moe_gemm_dx", "moe_gemm_dw", "moe_gemm_transpose",
                   "flash_attention", "decode_attention", "wkv6", "rglru")
 
@@ -3194,12 +3259,13 @@ def expected_train_launches(cfg, steps):
     """Kernel launches of `steps` training steps of a transformer config
     from the config alone.  A block's RMSNorms (two, the post-norms and
     the qk-norm's two where it has them) and the final norm run forward
-    and backward once a step, the backward in two launches (the rows, then
+    and backward once a step, the backward in one launch (its rows and
     dscale's column sum); remat recomputes the blocks' forward in the
     backward, relaunching their norms, and under "full" their grouped
     GEMMs (under "dots" the products' outputs are kept).  A MoE layer runs
-    three grouped products, each with a dx and a dw in the backward, and
-    each of those on one transposed copy."""
+    three grouped products, each with a dx and a dw in the backward: in
+    bf16 with their operands in place, in fp32 each on one transposed
+    copy."""
     per_layer = 0
     if cfg.norm == "rmsnorm":
         per_layer = 2 + (2 if cfg.post_norms else 0)
@@ -3208,10 +3274,11 @@ def expected_train_launches(cfg, steps):
     gemms = 3 * cfg.n_layers if cfg.moe is not None else 0
     rec_norms = cfg.n_layers * per_layer if cfg.remat != "none" else 0
     rec_gemms = gemms if cfg.remat == "full" else 0
+    import torch
+    copies = 2 * gemms if cfg.dtype == torch.float32 else 0
     per_step = {"rmsnorm": norms + rec_norms, "rmsnorm_bwd": norms,
-                "rmsnorm_dscale": norms, "moe_gemm": gemms + rec_gemms,
-                "moe_gemm_dx": gemms, "moe_gemm_dw": gemms,
-                "moe_gemm_transpose": 2 * gemms}
+                "moe_gemm": gemms + rec_gemms, "moe_gemm_dx": gemms,
+                "moe_gemm_dw": gemms, "moe_gemm_transpose": copies}
     return {k: steps * per_step.get(k, 0) for k in TRAIN_COUNTERS}
 
 
@@ -3329,6 +3396,70 @@ def train_run(torch, ops, label, arch, smi, expect=True, **kw):
     return out, counts, peak
 
 
+#: `train_top` lines a profiled step prints.
+TRAIN_TOP = 12
+
+
+def train_profile(torch, rt, label, cfg, smi):
+    """Where a training step's device time goes: one step of `cfg` at B
+    TRAIN_BATCH x S TRAIN_SEQ through `make_train_step` (seeded weights,
+    the synthetic stream, AdamW), profiled after two warm-up steps.  Prints
+    the step's wall time under the profiler, the device's busy time and
+    share of it, and the TRAIN_TOP kernels by device time (`train_top`:
+    share of the busy time, ms and launches a step), like `decode_top`."""
+    import collections
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = rt.bundle_for(cfg)
+    params = bundle.init_params(0, torch.device("cuda"))
+    state = opt_mod.init(params)
+    step = make_train_step(bundle, opt_mod.AdamWConfig(
+        lr=3e-4, warmup_steps=2, total_steps=4))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=0))
+    batches = [{k: v.to("cuda") for k, v in data.batch(i).items()}
+               for i in range(3)]
+    for batch in batches[:2]:
+        params, state, metrics = step(params, state, batch)
+        float(metrics["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        params, state, metrics = step(params, state, batches[2])
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    if not kernels:
+        fail(f"train profile {label}: the profiler recorded no kernel")
+    by_name = collections.defaultdict(list)
+    for e in kernels:
+        by_name[e.name].append(e.time_range.elapsed_us())
+    busy = sum(sum(us) for us in by_name.values())
+    say(f"train profile {label} ({smi}): step_ms_profiled={wall * 1e3:.3f} "
+        f"device_busy_ms={busy / 1e3:.3f} device_busy_share="
+        f"{busy / 1e3 / (wall * 1e3):.4f} kernels={len(kernels)} "
+        f"distinct={len(by_name)} loss={loss:.5f}")
+    for kname, us in sorted(by_name.items(),
+                            key=lambda kv: -sum(kv[1]))[:TRAIN_TOP]:
+        say(f"train_top {label} {kname[:90]}: share={sum(us) / busy:.4f} "
+            f"ms_a_step={sum(us) / 1e3:.4f} launches={len(us)}")
+    del params, state, metrics, batches, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_on_card(torch, rt, ops, smi):
     """Phase 12(b)-(d): llama3.2-1b as published through `run_training`,
     its crash and resume, its remat modes, and olmoe-1b-7b at full width
@@ -3363,6 +3494,7 @@ def train_on_card(torch, rt, ops, smi):
     if not base["losses"][-1] < base["losses"][0]:
         fail(f"train llama3.2-1b: the last loss is not below the first: "
              f"{base['losses']}")
+    train_profile(torch, rt, "llama3.2-1b", llama, smi)
 
     # 12(b): a crash at TRAIN_CRASH_AT with a checkpoint every
     # TRAIN_CKPT_EVERY steps, then the resume (one checkpoint kept: 12.4
@@ -3433,6 +3565,8 @@ def train_on_card(torch, rt, ops, smi):
     if not out["losses"][-1] < out["losses"][0]:
         fail(f"train olmoe-1b-7b: the last loss is not below the first: "
              f"{out['losses']}")
+    train_profile(torch, rt, f"olmoe-1b-7b ({OLMOE_TRAIN_LAYERS} layers)",
+                  olmoe, smi)
     return totals
 
 

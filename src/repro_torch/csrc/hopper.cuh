@@ -65,6 +65,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// A TMA box load with the default L2 policy.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // A TMA box load of a 4-D map; coordinates past the map's extent (or
 // negative) read as zeros, and the full box counts towards `bar`.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
@@ -118,9 +131,9 @@ __device__ __forceinline__ void wgmma_wait() {
 // warp w of the warpgroup holds rows 16w + lane/4 (+8); register 4j + r
 // holds column 8j + 2 (lane % 4) + r % 2, of row + 8 when r >= 2.
 
-// d[32] (+)= A (64 x 16, K-major, shared memory) @ B (16 x 64, shared
-// memory; TB = 1 when B is N-major).  acc = 0 overwrites d.
-template <int TB>
+// d[32] (+)= A (64 x 16, shared memory; TA = 1 when A is M-major) @ B
+// (16 x 64, shared memory; TB = 1 when B is N-major).  acc = 0 overwrites d.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                   uint64_t db, int acc) {
   asm volatile(
@@ -130,7 +143,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
+      "%32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -139,12 +152,12 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB), "n"(TA));
 }
 
-// d[48] (+)= A (64 x 16, K-major, shared memory) @ B (16 x 96, shared
-// memory; TB = 1 when B is N-major).  acc = 0 overwrites d.
-template <int TB>
+// d[48] (+)= A (64 x 16, shared memory; TA = 1 when A is M-major) @ B
+// (16 x 96, shared memory; TB = 1 when B is N-major).  acc = 0 overwrites d.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48], uint64_t da,
                                                   uint64_t db, int acc) {
   asm volatile(
@@ -155,7 +168,7 @@ __device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "%48, %49, p, 1, 1, 0, %51;\n"
+      "%48, %49, p, 1, 1, %52, %51;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -167,12 +180,12 @@ __device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48], uint64_t da,
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB), "n"(TA));
 }
 
-// d[64] (+)= A (64 x 16, K-major, shared memory) @ B (16 x 128, shared
-// memory; TB = 1 when B is N-major).  acc = 0 overwrites d.
-template <int TB>
+// d[64] (+)= A (64 x 16, shared memory; TA = 1 when A is M-major) @ B
+// (16 x 128, shared memory; TB = 1 when B is N-major).  acc = 0 overwrites d.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                   uint64_t db, int acc) {
   asm volatile(
@@ -184,7 +197,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -199,7 +212,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB), "n"(TA));
 }
 
 // d[128] += A (64 x 16 bf16, registers: the accumulator layout of an m64n16

@@ -54,11 +54,16 @@
 //    tiles wholly past C.  The grid runs an expert's row tiles of one
 //    column block side by side, so w comes from L2 after its first read.
 //
-// The backward (training) runs its two products on these same variants:
-// dx[e] = dy[e] w[e]^T on an explicitly transposed copy of w, and dw[e] =
-// x[e]^T dy[e] on a transposed copy of x whose contraction (the capacity)
-// is zero-padded to a multiple of 8; `moe_transpose` at the end of this file
-// makes both copies.
+// The backward (training) has two products, dx[e] = dy[e] w[e]^T and
+// dw[e] = x[e]^T dy[e].  In bf16 they read their operands in place, as
+// autograd hands them over (`moe_gemm_dx_launch`, `moe_gemm_dw_launch`):
+// both on a persistent cooperative variant of TMA + wgmma on 128 x 256
+// tiles whose operand layouts are template arguments (see the section
+// "Backward variant").  fp32 has no transpose bits (wgmma transposes
+// 16-bit types only) and its tile and skinny variants take row-major
+// operands, so fp32 dx and dw run the variants above on transposed copies
+// (`moe_transpose`, at the end of this file; dw's capacity zero-padded to
+// a multiple of 8).
 //
 // K and N must be multiples of 8 so that every 16-byte vector is wholly
 // inside or wholly outside the matrix (and every TMA stride a multiple of
@@ -542,6 +547,217 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* y, int E, int C,
 }
 
 // ---------------------------------------------------------------------------
+// Backward variant (bf16): dx and dw with their operands read in place
+// ---------------------------------------------------------------------------
+//
+// out[e] (M x Nn) = A[e] (M x Kc) B[e] (Kc x Nn), with A and B read by TMA as
+// they lie in device memory:
+//   dx[e] = dy[e] w[e]^T (TA = TB = 0): M = C, Nn = K, Kc = N.  A = dy
+//     [C, N] and B = w [K, N] are both K-major (their rows run along the
+//     contraction): no transpose bit.
+//   dw[e] = x[e]^T dy[e] (TA = TB = 1): M = K, Nn = N, Kc = C.  A = x
+//     [C, K] is M-major (the transpose bit of A) and B = dy [C, N]
+//     N-major (the bit of B, as the forward reads w).  Rows past C read as
+//     zeros within the expert, so the capacity needs no padding.
+// Bound at olmoe-1b-7b's training products ([64, 640, 2048] x [64, 2048,
+// 1024] and back) by the tensor cores: 172 GFLOP a product, 0.174 ms at the
+// bf16 peak, against 0.10-0.16 ms for the bytes of device memory.  Close
+// behind comes what the tiles stream from L2 into shared memory, 2-3 GB a
+// product: a tile has to do ~85 operations a byte of it or more.
+//
+// A CTA tile is 128 x 256: two consumer warpgroups take one 128 x 128 half
+// each (two m64n128k16 products a k16 step, 128 fp32 accumulators a
+// thread), both on every stage, which holds 64 of the contraction of A's
+// 128 rows (two 8 KB boxes of 64 rows, or of 64 columns M-major) and B's
+// 256 columns (48 KB a stage, a ring of 4; 85 operations a byte of it).
+// (Warpgroups on tiles of their own in turn, "ping-pong", stream 64 a byte
+// and ran 1.5x slower; CTA pairs sharing an operand by TMA multicast in
+// clusters of 2 gained nothing measurable: PERF.md.)  128 rows split
+// C = 640 into five whole tiles; K = 1024 / 2048 and N take whole
+// 256-column tiles.  The grid is persistent (a CTA an SM, tiles taken in
+// turn, an expert's side by side so its operands come from L2 after their
+// first read), so the loads of a CTA's next tile run under the epilogue of
+// its last (bf16 through a 16 KB swizzled staging buffer a warpgroup and
+// TMA stores, which clip rows past M and columns past Nn).  Each tile is
+// owned by one CTA that walks K in order: the same bits every run.
+
+constexpr int kBwM = 128, kBwN = 128, kBwK = 64;  // a warpgroup's tile
+constexpr int kBwHalf = 64 * kBwK * 2;              // 8 KB: 64 rows x 64
+constexpr int kBwA = 2 * kBwHalf;                   // A a stage: 128 rows
+constexpr int kBwB = 4 * kBwHalf;                   // B a stage: 256 columns
+constexpr int kBwStageBytes = kBwA + kBwB;
+constexpr int kBwStages = 4;
+constexpr int kBwOutBytes = 64 * kBwN * 2;          // a 64 x 128 half tile
+constexpr int kBwThreads = 2 * 128 + 32;            // + the producer warp
+constexpr int kBwSmem =
+    kBwStages * kBwStageBytes + 2 * kBwOutBytes + 1024 + 2 * kBwStages * 8;
+static_assert(kBwSmem <= 232448, "the SM's shared memory");
+
+template <int TA, int TB>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    moe_gemm_bwd_bf16(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap omap, int E, int M,
+                      int Nn, int Kc) {
+  extern __shared__ unsigned char bw_smem[];
+  const uint32_t base = (smem_u32(bw_smem) + 1023u) & ~1023u;  // swizzle atoms
+  const uint32_t bars = base + kBwStages * kBwStageBytes + 2 * kBwOutBytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kBwStages + s); };
+  const int m_tiles = (M + kBwM - 1) / kBwM;
+  const int n_tiles = (Nn + 2 * kBwN - 1) / (2 * kBwN);
+  const int per_expert = m_tiles * n_tiles;
+  const int tiles = E * per_expert;
+  const int nk = (Kc + kBwK - 1) / kBwK;
+  const int warp = threadIdx.x >> 5;
+  // Tile u: (expert, first row, first column).
+  auto tile_of = [&](int u, int& e, int& m0, int& n0) {
+    e = u / per_expert;
+    const int r = u % per_expert;
+    m0 = (r / n_tiles) * kBwM;
+    n0 = (r % n_tiles) * 2 * kBwN;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer warp: one thread starts TMA
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+      int e, m0, n0;
+      tile_of(u, e, m0, n0);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kBwStages;
+        mbar_wait(empty(s), ((it / kBwStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), kBwStageBytes);
+        const uint32_t a = base + s * kBwStageBytes, b = a + kBwA;
+        const int k0 = kt * kBwK;
+        // A in two boxes of 64 rows (TA 0) or 64 columns (TA 1); B in
+        // two of 128 rows (TB 0) or four of 64 columns (TB 1).
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c0 = TA == 0 ? k0 : m0 + 64 * h;
+          const int c1 = TA == 0 ? m0 + 64 * h : k0;
+          tma_load_3d(a + h * kBwHalf, &amap, full(s), c0, c1, e);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // 128 columns each
+          const uint32_t d = b + h * 2 * kBwHalf;
+          const int n = n0 + kBwN * h;
+          if constexpr (TB == 0) {
+            tma_load_3d(d, &bmap, full(s), k0, n, e);
+          } else {
+            tma_load_3d(d, &bmap, full(s), n, k0, e);
+            tma_load_3d(d + kBwHalf, &bmap, full(s), n + 64, k0, e);
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;              // consumer warpgroup 0 or 1
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const uint32_t out = base + kBwStages * kBwStageBytes + wg * kBwOutBytes;
+  float acc[2][64];
+  int it = 0;
+  for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+    int e, m0, n0;
+    tile_of(u, e, m0, n0);
+    n0 += kBwN * wg;                     // this warpgroup's 128 columns
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[t][i] = 0.f;
+    int prev = -1;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kBwStages;
+      mbar_wait(full(s), (it / kBwStages) & 1);
+      const uint32_t a = base + s * kBwStageBytes,
+                     b = a + kBwA + wg * 2 * kBwHalf;
+      // All four k16 steps, a short last stage's too (TMA zero-filled its
+      // contraction past Kc): a branch on the count between the products
+      // would make ptxas serialize them.  K-major (TA / TB = 0): 128-byte
+      // rows, 8-row groups 1024 B apart, a k16 step 32 B along the row,
+      // the second m64 tile 8 KB on; M- or N-major (1): 64-column boxes
+      // 8 KB apart, 8-k groups 1024 B apart, a k16 step 16 rows (2 KB).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwK / 16; ++kk) {
+        const uint64_t db = TB == 0 ? gmma_desc(b + kk * 32, 16, 1024)
+                                    : gmma_desc(b + kk * 2048, 8192, 1024);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          wgmma_m64n128k16_ss<TB, TA>(
+              acc[t],
+              TA == 0 ? gmma_desc(a + t * 8192 + kk * 32, 16, 1024)
+                      : gmma_desc(a + t * 8192 + kk * 2048, 8192, 1024),
+              db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (prev >= 0) mbar_arrive(empty(prev));
+      prev = s;
+    }
+    wgmma_wait<0>();
+    mbar_arrive(empty(prev));
+
+    // Epilogue, one 64-row half at a time through the staging buffer
+    // (accumulator and swizzle layouts as in moe_gemm_wgmma_bf16).
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if (m0 + 64 * t >= M || n0 >= Nn) break;
+      if (tid == 0)  // the buffer's last store has read it
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(wg);
+      const int row = 16 * (tid >> 5) + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < kBwN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = row + 8 * h;
+          const uint32_t addr = out + (j >> 3) * kBwHalf + rr * 128 +
+                                (((j & 7) ^ (rr & 7)) << 4) + 4 * (lane & 3);
+          const __nv_bfloat162 v = __floats2bfloat162_rn(
+              acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                       "r"(*reinterpret_cast<const uint32_t*>(&v))
+                       : "memory");
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(wg);
+      if (tid == 0) {
+        tma_store_3d(&omap, out, n0, m0 + 64 * t, e);
+        tma_store_3d(&omap, out + kBwHalf, n0 + 64, m0 + 64 * t, e);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int TA, int TB>
+cudaError_t launch_bwd(const CUtensorMap& amap, const CUtensorMap& bmap,
+                       const CUtensorMap& omap, int E, int M, int Nn, int Kc,
+                       int ctas, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gemm_bwd_bf16<TA, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBwSmem);
+  if (err != cudaSuccess) return err;
+  moe_gemm_bwd_bf16<TA, TB><<<ctas, kBwThreads, kBwSmem, s>>>(
+      amap, bmap, omap, E, M, Nn, Kc);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // 3xTF32 tile variant (C > 8, fp32)
 // ---------------------------------------------------------------------------
 //
@@ -694,9 +910,10 @@ cudaError_t launch_skinny(const void* x, const void* w, void* y, int E, int C,
 // Transposed copy, for the backward
 // ---------------------------------------------------------------------------
 //
-// The backward's products dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T dy[e]
-// (kernels/moe_gemm/ops.py) run on the variants above, which take row-major
-// [E, C, K] x [E, K, N] operands; this kernel makes the transposed operand:
+// The fp32 backward's products dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T
+// dy[e] (kernels/moe_gemm/ops.py) run on the fp32 variants above, which take
+// row-major [E, C, K] x [E, K, N] operands; this kernel makes the transposed
+// operand:
 // dst[e, j, i] = src[e, i, j] for src [E, R, Cc] and dst [E, Cc, Rp], with
 // the rows R <= i < Rp of dst's last axis zero (dw's contraction runs over
 // the capacity, padded to a multiple of 8).  A CTA of 32 x 8 threads moves
@@ -777,6 +994,39 @@ extern "C" int moe_gemm_decode_launch(const void* x, const void* w, void* y,
   moe_gemm_decode_bf16<<<ctas, kGvThreads, kGvSmem, s>>>(
       xmap, wmap, static_cast<__nv_bfloat16*>(y), E, C, K, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 dx [E, C, K] = dy [E, C, N] w [E, K, N]^T, both read in place, on
+// the `ctas` CTAs of ops.bwd_plan (rows past C read as zeros and are not
+// stored, so every C >= 1 takes this variant).
+extern "C" int moe_gemm_dx_launch(const void* dy, const void* w, void* dx,
+                                  int E, int C, int K, int N, int ctas,
+                                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(E, C, K, N) || ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap amap, bmap, omap;
+  if (!make_map(&amap, dy, N, C, E) || !make_map(&bmap, w, N, K, E, kBwN) ||
+      !make_map(&omap, dx, K, C, E))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_bwd<0, 0>(amap, bmap, omap, E, C, K, N, ctas, s));
+}
+
+// bf16 dw [E, K, N] = x [E, C, K]^T dy [E, C, N], both read in place, on
+// the `ctas` CTAs of ops.bwd_plan.
+extern "C" int moe_gemm_dw_launch(const void* x, const void* dy, void* dw,
+                                  int E, int C, int K, int N, int ctas,
+                                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(E, C, K, N) || ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap amap, bmap, omap;
+  if (!make_map(&amap, x, K, C, E) || !make_map(&bmap, dy, N, C, E) ||
+      !make_map(&omap, dw, N, K, E))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_bwd<1, 1>(amap, bmap, omap, E, K, N, C, ctas, s));
 }
 
 // dst [E, Cc, Rp] = src [E, R, Cc] transposed, zero rows past R (Rp >= R).

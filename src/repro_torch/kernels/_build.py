@@ -47,11 +47,12 @@ _ATTN = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 #: C signature of each entry point, by symbol (all return a cudaError_t).
 #: A library's default entry point is `<name>_launch`; flash_attention also
 #: has `flash_attention_tc_launch` (the bf16 tensor-core route), moe_gemm
-#: `moe_gemm_decode_launch` (bf16 at C <= 8, with its plan) and
-#: `moe_transpose_launch` (the backward's transposed operands), rglru
-#: `rglru_gated_launch` (the gate arithmetic folded in), rmsnorm
-#: `rmsnorm_bwd_launch` and `rmsnorm_dscale_launch` (the backward's rows
-#: and its column sum).
+#: `moe_gemm_decode_launch` (bf16 at C <= 8, with its plan),
+#: `moe_gemm_dx_launch` and `moe_gemm_dw_launch` (the bf16 backward's
+#: products, operands in place) and `moe_transpose_launch` (the fp32
+#: backward's transposed operands), rglru `rglru_gated_launch` (the gate
+#: arithmetic folded in), rmsnorm `rmsnorm_bwd_launch` (the backward, its
+#: column sum in the same launch).
 SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
@@ -60,14 +61,15 @@ SIGNATURES = {
     "flash_attention_tc_launch": _ATTN,
     "moe_gemm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "moe_gemm_decode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "moe_gemm_dx_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "moe_gemm_dw_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "moe_transpose_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
     "rglru_gated_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _I, _P],
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _F, _P],
-    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I,
-                           _I, _F, _P],
-    "rmsnorm_dscale_launch": [_P, _P, _I, _I, _I, _P],
+    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
+                           _I, _I, _I, _I, _I, _I, _F, _P],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
                     _L, _L, _I, _P],
 }

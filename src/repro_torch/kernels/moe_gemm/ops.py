@@ -13,11 +13,13 @@ Where autograd records (grad enabled and x or w requiring grad) the CUDA
 call goes through the custom op `repro_torch::grouped_gemm`, so that
 selective checkpointing can name it as a matrix product to keep
 (`models/transformer.py`, remat "dots"); its backward is `grouped_gemm_dx`
-and `grouped_gemm_dw`, which run the same kernel on transposed copies
-(`transpose_pad`, a kernel of the same file), never a library product.
+and `grouped_gemm_dw`, kernels of the same file, never a library product.
+In bf16 they read dy, w and x in place (the transpose bits of wgmma) on
+the backward variant, at every C, on the tiles of `bwd_plan`.  wgmma
+transposes 16-bit types only, so in fp32 they run the forward's variants on transposed copies (`transpose_pad`).
 `launches` counts forward products, `dx_launches` and `dw_launches` the
-backward's products, `transpose_launches` the transposed copies (one for
-each dx and each dw)."""
+backward's products, `transpose_launches` the transposed copies (fp32
+only: one for each dx and each dw)."""
 
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ launches = 0
 #: (each also launches one transposed copy, counted below).
 dx_launches = 0
 dw_launches = 0
-#: Transposed copies launched through `transpose_pad`.
+#: Transposed copies launched through `transpose_pad` (the fp32 backward).
 transpose_launches = 0
 
 #: Rows an expert (capacity C) up to which the decode variants run.
@@ -85,27 +87,64 @@ def decode_plan(e: int, c: int, k: int, n: int,
     return DecodePlan(units, min(units, sms))
 
 
+#: Rows and columns of a CTA's tile of the bf16 backward variant (two
+#: warpgroups of 128 x 128 side by side).
+BWD_ROWS, BWD_COLS = 128, 256
+
+
+class BwdPlan(NamedTuple):
+    """How the bf16 backward variant covers out [E, M, Nn]: `tiles` tiles
+    of BWD_ROWS x BWD_COLS, tile t being expert t // (m_tiles * n_tiles),
+    row tile (t // n_tiles) % m_tiles and column tile t % n_tiles; `ctas`
+    persistent CTAs, CTA i taking tiles i, i + ctas, ..."""
+    tiles: int
+    ctas: int
+    m_tiles: int
+    n_tiles: int
+
+
+def bwd_plan(e: int, m: int, nn: int, sms: int = SM_COUNT) -> BwdPlan:
+    """The bf16 backward variant's plan for out [E, M, Nn] (dx: M = C,
+    Nn = K; dw: M = K, Nn = N) on a card of `sms` SMs: one CTA an SM at
+    most.  128-row tiles split olmoe-1b-7b's training capacity (C = 640)
+    into five whole tiles, and its K and N into whole 256-column tiles.
+    Raises ValueError for an empty shape."""
+    if not (1 <= e <= 65535 and m > 0 and nn > 0 and sms >= 1):
+        raise ValueError(f"moe_gemm backward: need 1 <= E <= 65535, M, Nn "
+                         f"and sms positive; got E={e}, M={m}, Nn={nn}, "
+                         f"sms={sms}")
+    m_tiles, n_tiles = -(-m // BWD_ROWS), -(-nn // BWD_COLS)
+    tiles = e * m_tiles * n_tiles
+    return BwdPlan(tiles, min(tiles, sms), m_tiles, n_tiles)
+
+
+def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Both on one CUDA device, of one dtype, 3-D, contiguous and 16-byte
+    aligned (the kernels' TMA maps and vector loads)."""
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{name}: operands on {a.device} and {b.device}; "
+                         "both must be on one CUDA device")
+    if b.dtype != a.dtype:
+        raise TypeError(f"{name}: operands are {a.dtype} and {b.dtype}")
+    if a.dim() != 3 or b.dim() != 3 or not a.is_contiguous() \
+            or not b.is_contiguous() or a.data_ptr() % 16 \
+            or b.data_ptr() % 16:
+        raise ValueError(f"{name}: operands must be 3-D, contiguous and "
+                         "16-byte aligned")
+
+
 def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y[e] = x[e] @ w[e] on the card, through the variant that the dtype
     and C pick; checks the operands and raises on what no variant takes."""
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"grouped_gemm: x on {x.device}, w on {w.device}; "
-                         "both must be on one CUDA device")
-    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
-            or w.shape[1] != x.shape[2]:
+    _check_pair("grouped_gemm", x, w)
+    if w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
         raise ValueError(f"grouped_gemm: need x [E, C, K] and w [E, K, N], "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    if w.dtype != x.dtype:
-        raise TypeError(f"grouped_gemm: x is {x.dtype}, w is {w.dtype}")
     e, c, k = x.shape
     n = w.shape[2]
     if k % 8 or n % 8:
         raise ValueError(f"grouped_gemm: K={k} and N={n} must be multiples "
                          "of 8 (16-byte vectors)")
-    if not x.is_contiguous() or not w.is_contiguous() \
-            or x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("grouped_gemm: x and w must be contiguous and "
-                         "16-byte aligned")
     code = _build.dtype_code(x)
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if x.dtype == torch.bfloat16 and c <= DECODE_ROWS:
@@ -178,32 +217,75 @@ def transpose_pad(src: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
+def _bwd_product(which: str, a: torch.Tensor, b: torch.Tensor, e: int,
+                 c: int, k: int, n: int) -> torch.Tensor:
+    """bf16 dx [E, C, K] (`which` "dx": a = dy, b = w) or dw [E, K, N]
+    ("dw": a = x, b = dy), its operands read in place."""
+    _check_pair(f"grouped_gemm_{which}", a, b)
+    if k % 8 or n % 8:
+        raise ValueError(f"grouped_gemm_{which}: K={k} and N={n} must be "
+                         "multiples of 8 (16-byte TMA strides)")
+    sms = sm_count(a.device)
+    if which == "dx":
+        out = torch.empty((e, c, k), dtype=a.dtype, device=a.device)
+        ctas = bwd_plan(e, c, k, sms).ctas
+    else:
+        out = torch.empty((e, k, n), dtype=a.dtype, device=a.device)
+        ctas = bwd_plan(e, k, n, sms).ctas
+    err = _build.load("moe_gemm", f"moe_gemm_{which}_launch")(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), e, c, k, n, ctas,
+        _build.stream())
+    _build.check(f"moe_gemm {which}", err)
+    return out
+
+
 def grouped_gemm_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x's gradient: dx[e] = dy[e] @ w[e]^T for dy [E, C, N] and w
-    [E, K, N] -> [E, C, K] in dy's dtype.  On the card: the grouped GEMM on
-    an explicitly transposed copy of w ([E, N, K], `transpose_pad`)."""
+    [E, K, N] -> [E, C, K] in dy's dtype.  On the card in bf16: dy and w
+    read in place; in fp32: the grouped GEMM on a transposed copy of w
+    ([E, N, K], `transpose_pad`)."""
     global dx_launches
     if dy.device.type == "cpu":
         return moe_gemm_dx_ref(dy, w)
-    out = _product(dy.contiguous(), transpose_pad(w.contiguous(),
-                                                  w.shape[1]))
+    if dy.dim() != 3 or w.dim() != 3 or w.shape[0] != dy.shape[0] \
+            or w.shape[2] != dy.shape[2]:
+        raise ValueError(f"grouped_gemm_dx: need dy [E, C, N] and w "
+                         f"[E, K, N], got {tuple(dy.shape)} and "
+                         f"{tuple(w.shape)}")
+    if dy.dtype == torch.bfloat16:
+        e, c, n = dy.shape
+        out = _bwd_product("dx", dy.contiguous(), w.contiguous(), e, c,
+                           w.shape[1], n)
+    else:
+        out = _product(dy.contiguous(), transpose_pad(w.contiguous(),
+                                                      w.shape[1]))
     dx_launches += 1
     return out
 
 
 def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """w's gradient: dw[e] = x[e]^T @ dy[e] for x [E, C, K] and dy
-    [E, C, N] -> [E, K, N] in x's dtype.  On the card: the grouped GEMM on
-    a transposed copy of x ([E, K, C8]) and dy, the contraction over C
+    [E, C, N] -> [E, K, N] in x's dtype.  On the card in bf16: x and dy
+    read in place (rows past C read as zeros); in fp32: the grouped GEMM
+    on a transposed copy of x ([E, K, C8]) and dy, the contraction over C
     zero-padded to C8, the next multiple of 8 (the kernel's K)."""
     global dw_launches
     if x.device.type == "cpu":
         return moe_gemm_dw_ref(x, dy)
-    c = x.shape[1]
-    c8 = -(-c // 8) * 8
-    dy = dy.contiguous()
-    if c8 != c:
-        dy = torch.nn.functional.pad(dy, (0, 0, 0, c8 - c))
-    out = _product(transpose_pad(x.contiguous(), c8), dy)
+    if x.dim() != 3 or dy.dim() != 3 or dy.shape[:2] != x.shape[:2]:
+        raise ValueError(f"grouped_gemm_dw: need x [E, C, K] and dy "
+                         f"[E, C, N], got {tuple(x.shape)} and "
+                         f"{tuple(dy.shape)}")
+    if x.dtype == torch.bfloat16:
+        e, c, k = x.shape
+        out = _bwd_product("dw", x.contiguous(), dy.contiguous(), e, c, k,
+                           dy.shape[2])
+    else:
+        c = x.shape[1]
+        c8 = -(-c // 8) * 8
+        dy = dy.contiguous()
+        if c8 != c:
+            dy = torch.nn.functional.pad(dy, (0, 0, 0, c8 - c))
+        out = _product(transpose_pad(x.contiguous(), c8), dy)
     dw_launches += 1
     return out

@@ -8,28 +8,28 @@ tensor takes the plain version in `ref.py` (differentiable by autograd);
 a CUDA tensor launches the kernel, with the plan `launch_plan` picks from
 the shapes, or raises.  Where autograd records (grad enabled and x or
 scale requiring grad) the CUDA call goes through `_RMSNormFn`, whose
-backward is the kernel's two backward entries (`rmsnorm_backward`: the
-rows with plan `bwd_plan`, then the column sum of dscale's partials);
+backward is the backward kernel (`rmsnorm_backward`, plan `bwd_plan`: one
+pass over the rows in registers and dscale's column sum, in one launch);
 serving's tensors require no grad and launch the forward alone, as before.
-`launches` counts forward launches, `bwd_launches` the backward's rows
-kernel and `dscale_launches` its column sum."""
+`launches` counts forward launches, `bwd_launches` backward launches."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+from typing import Dict, Tuple
+
 import torch
 
+from repro_torch._device import SM_COUNT, sm_count
 from repro_torch.kernels import _build
-from repro_torch.kernels.rmsnorm.ref import (dscale_sum_ref, rmsnorm_bwd_ref,
-                                             rmsnorm_ref)
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 #: Kernel launches made through `rmsnorm` (the CPU path does not count).
 launches = 0
-#: Launches made through `rmsnorm_backward`: its rows kernel, and the
-#: column sum of dscale's partials (`dscale_sum`).
+#: Kernel launches made through `rmsnorm_backward` (one a call).
 bwd_launches = 0
-dscale_launches = 0
 
 #: Bytes of one vector load or store.
 VEC_BYTES = 16
@@ -39,9 +39,12 @@ CTA_THREADS = 128
 MAX_LANES = 1024
 #: Most loads a lane makes, and most values it holds in registers.
 MAX_ITEMS, MAX_VALUES = 8, 32
-#: The backward: least threads a CTA, most CTAs a launch (four an SM of
-#: the H100's 132; rows past them loop), most shared memory a CTA.
-BWD_THREADS, BWD_MAX_CTAS, BWD_SMEM_BYTES = 256, 528, 48 * 1024
+#: The backward: threads a CTA (one CTA an SM, 64 registers a thread), most
+#: rows a CTA holds at once where a row spans warps (named barriers 1-15),
+#: and most bytes of a row a lane loads from each of x, dy and scale (all
+#: three stay in registers, beside its fp32 dscale partials: 16 values a
+#: lane in bf16, 8 in fp32).
+BWD_THREADS, BWD_MAX_SLOTS, BWD_MAX_BYTES = 1024, 15, 32
 
 
 class NormPlan(NamedTuple):
@@ -90,31 +93,52 @@ def launch_plan(d: int, itemsize: int, row_stride: int,
 
 
 class BwdPlan(NamedTuple):
-    """How the backward covers `rows` rows of width D: `lanes` threads (a
-    power of two, 32-1024) a row, CTAs of `threads` threads (threads /
-    lanes rows at a time), `ctas` CTAs walking the rows grid-strided."""
+    """How the backward covers `rows` rows of width D in one launch: the
+    forward's row layout (`vec`, `lanes`, `items`: see NormPlan), CTAs of
+    `threads` threads holding `slots` rows at a time, `ctas` CTAs walking
+    the rows slot-strided, and dscale's partials summed in groups of
+    `group` CTAs, then across the groups."""
+    vec: int
     lanes: int
+    items: int
     threads: int
+    slots: int
     ctas: int
+    group: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.ctas // self.group)
 
 
-def bwd_plan(rows: int, d: int) -> BwdPlan:
-    """The backward's plan for `rows` rows of `d` elements, from these
-    alone: a lane takes about 8 columns of a row (olmoe's 128-wide qk-norm
-    rows: one warp a row, 8 rows a CTA; d_model 2048: 256 lanes, one row a
-    CTA), and at most BWD_MAX_CTAS CTAs.  Each CTA keeps an fp32 column
-    partial for each of its rows in flight, so threads / lanes x d x 4
-    bytes of shared memory; raises ValueError past BWD_SMEM_BYTES."""
-    if rows < 1 or d < 1:
-        raise ValueError(f"rmsnorm backward: need rows and width >= 1, got "
-                         f"{rows} x {d}")
-    lanes = min(max(_pow2_at_least(-(-d // 8)), 32), MAX_LANES)
-    threads = max(lanes, BWD_THREADS)
-    if threads // lanes * d * 4 > BWD_SMEM_BYTES:
-        raise ValueError(f"rmsnorm backward: rows of {d} elements need more "
-                         f"than {BWD_SMEM_BYTES} bytes of column partials")
-    per_cta = threads // lanes
-    return BwdPlan(lanes, threads, min(-(-rows // per_cta), BWD_MAX_CTAS))
+def bwd_plan(rows: int, d: int, itemsize: int, x_stride: int,
+             dy_stride: int, aligned: bool, sms: int = SM_COUNT) -> BwdPlan:
+    """The backward's plan for `rows` rows of `d` elements of `itemsize`
+    bytes, x's rows `x_stride` elements apart and dy's `dy_stride`, on a
+    card of `sms` SMs, from these alone.  `aligned`: the bases of x, dy,
+    scale and dx are multiples of 16 bytes.  A row is laid out as the
+    forward lays it (`launch_plan`; 16-byte loads only where both strides
+    allow them), in CTAs of BWD_THREADS threads (BWD_MAX_SLOTS rows at most
+    where a row spans warps), one CTA an SM, no more CTAs than the rows
+    fill; the column sum in groups of ceil(sqrt(ctas)) CTAs.  At llama's
+    4096 x 2048 bf16 rows: 128 lanes of 16 values, 8 rows a CTA, 132 CTAs;
+    at olmoe's 65536 x 128 qk-norm rows: 16 lanes of 8, 64 rows a CTA, 132
+    CTAs.  Raises ValueError for rows wider than BWD_MAX_BYTES a lane."""
+    if rows < 1:
+        raise ValueError(f"rmsnorm backward: need rows >= 1, got {rows}")
+    vec = VEC_BYTES // itemsize
+    p = launch_plan(d, itemsize, x_stride, aligned and dy_stride % vec == 0)
+    if p.items * p.vec * itemsize > BWD_MAX_BYTES:
+        raise ValueError(f"rmsnorm backward: rows of {d} elements need "
+                         f"{p.items * p.vec * itemsize} bytes a lane, more "
+                         f"than the {BWD_MAX_BYTES} its registers hold")
+    threads = max(p.lanes, BWD_THREADS)
+    if p.lanes > 32:
+        threads = min(threads, BWD_MAX_SLOTS * p.lanes)
+    slots = threads // p.lanes
+    ctas = min(-(-rows // slots), sms)
+    return BwdPlan(p.vec, p.lanes, p.items, threads, slots, ctas,
+                   math.isqrt(ctas - 1) + 1)
 
 
 def rows_view(x: torch.Tensor) -> torch.Tensor:
@@ -191,13 +215,27 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return _forward(x, scale, eps)
 
 
+#: Zeroed ticket counters of the backward's column sum, by (device,
+#: stream): each launch leaves them zero for the next on its stream.
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
 def rmsnorm_backward(dy: torch.Tensor, x: torch.Tensor,
                      scale: torch.Tensor, *, eps: float = 1e-6):
     """Gradients of `rmsnorm(x, scale, eps=eps)` given dy (x's shape, any
     strides): (dx in x's dtype and shape, dscale [D] in scale's dtype),
     computed in fp32.  A CPU tensor takes `rmsnorm_bwd_ref`; a CUDA tensor
-    launches the backward kernel (dscale summed in a fixed order, the same
-    bits from run to run) or raises."""
+    launches the backward kernel once (dscale summed in a fixed order, the
+    same bits from run to run) or raises."""
     global bwd_launches
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(dy, x, scale, eps)
@@ -216,37 +254,21 @@ def rmsnorm_backward(dy: torch.Tensor, x: torch.Tensor,
         dy2 = dy.contiguous().view(-1, d)
     rows = x2.shape[0]
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
     if rows == 0:
-        return dx, torch.zeros((d,), dtype=scale.dtype, device=x.device)
-    plan = bwd_plan(rows, d)
-    part = torch.empty((plan.ctas, d), dtype=torch.float32, device=x.device)
+        return dx, dscale.zero_()
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x2, dy2, scale, dx))
+    plan = bwd_plan(rows, d, x.element_size(), x2.stride(0), dy2.stride(0),
+                    aligned, sm_count(x.device))
+    part = torch.empty(((plan.ctas + plan.groups) * d,), dtype=torch.float32,
+                       device=x.device)
     err = _build.load("rmsnorm", "rmsnorm_bwd_launch")(
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), _build.dtype_code(x), rows, d, x2.stride(0),
-        dy2.stride(0), plan.lanes, plan.threads, plan.ctas, float(eps),
+        dscale.data_ptr(), part.data_ptr(),
+        _tickets(x.device, plan.groups + 1).data_ptr(), _build.dtype_code(x),
+        rows, d, x2.stride(0), dy2.stride(0), plan.vec, plan.lanes,
+        plan.items, plan.threads, plan.ctas, plan.group, float(eps),
         _build.stream())
     _build.check("rmsnorm backward", err)
     bwd_launches += 1
-    return dx, dscale_sum(part, scale.dtype)
-
-
-def dscale_sum(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The column sum of `part` [ctas, D] (fp32, contiguous), its rows
-    added in order, as a [D] tensor of `dtype`: the backward's dscale from
-    its CTAs' partials.  A CPU tensor takes `dscale_sum_ref`; a CUDA tensor
-    launches the column-sum kernel or raises."""
-    global dscale_launches
-    if part.device.type == "cpu":
-        return dscale_sum_ref(part, dtype)
-    if part.device.type != "cuda" or part.dtype != torch.float32 \
-            or part.dim() != 2 or not part.is_contiguous():
-        raise ValueError(f"rmsnorm dscale: need contiguous fp32 [ctas, D] on "
-                         f"the card, got {tuple(part.shape)} {part.dtype} on "
-                         f"{part.device}")
-    out = torch.empty((part.shape[1],), dtype=dtype, device=part.device)
-    err = _build.load("rmsnorm", "rmsnorm_dscale_launch")(
-        part.data_ptr(), out.data_ptr(), _build.dtype_code(out),
-        part.shape[0], part.shape[1], _build.stream())
-    _build.check("rmsnorm dscale", err)
-    dscale_launches += 1
-    return out
+    return dx, dscale

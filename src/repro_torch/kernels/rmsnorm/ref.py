@@ -1,6 +1,6 @@
-"""Plain PyTorch RMSNorm and its backward: the CPU paths of `ops.rmsnorm`,
-`ops.rmsnorm_backward` and `ops.dscale_sum`, and the oracles their CUDA
-kernels are held to on the card.  Same arithmetic as `repro.models.common.rmsnorm` with
+"""Plain PyTorch RMSNorm and its backward: the CPU paths of `ops.rmsnorm`
+and `ops.rmsnorm_backward`, and the oracles their CUDA kernels are held to
+on the card.  Same arithmetic as `repro.models.common.rmsnorm` with
 ``unit_offset=True``; the backward is that function's gradient, written
 out in fp32."""
 
@@ -32,8 +32,3 @@ def rmsnorm_bwd_ref(dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     dscale = (df * xh).reshape(-1, x.shape[-1]).sum(dim=0)
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
-
-def dscale_sum_ref(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The column sum of the backward's fp32 partials [ctas, D], as a [D]
-    tensor of `dtype`."""
-    return part.sum(dim=0).to(dtype)

@@ -1052,13 +1052,15 @@ def _sum_close(out, ref, tol):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_rmsnorm_backward_kernel_matches_plain(rnd, dtype):
     """dx and dscale of the backward kernel against `rmsnorm_bwd_ref`:
-    llama's d_model rows, olmoe's 128-wide qk-norm rows (a warp a row),
-    rows past a CTA's grid-stride loop (9000 x 64), a width off every
-    power of two (96), and a dy sliced along the sequence (a row stride
-    the kernel takes).  The same inputs give the same bits twice."""
+    llama's d_model rows, olmoe's 128-wide qk-norm rows (16 or 32 lanes a
+    row), rows past one slot's share of the grid (9000 x 64), a width off
+    every power of two (96), one off a 16-byte vector (100: scalar loads),
+    and a dy sliced along the sequence (a row stride the kernel takes).
+    Each call is one launch, and the same inputs give the same bits
+    twice."""
     dt, tol = DTYPES[dtype]
-    before = rms_ops.bwd_launches, rms_ops.dscale_launches
-    cases = ((8, 64, 2048), (7, 5, 16, 128), (9000, 64), (3, 96))
+    before = rms_ops.bwd_launches
+    cases = ((8, 64, 2048), (7, 5, 16, 128), (9000, 64), (3, 96), (5, 100))
     for shape in cases:
         x, s = rnd(shape, dt), rnd(shape[-1:], dt, 0.1)
         dy = rnd(shape, dt)
@@ -1074,9 +1076,37 @@ def test_rmsnorm_backward_kernel_matches_plain(rnd, dtype):
     rdx, rds = rms_ops.rmsnorm_bwd_ref(dy, x, s)
     torch.testing.assert_close(dx, rdx, rtol=tol, atol=tol)
     _sum_close(ds, rds, SUM_TOL[dtype])
-    calls = 2 * len(cases) + 1      # each a rows and a column-sum launch
-    assert (rms_ops.bwd_launches, rms_ops.dscale_launches) == (
-        before[0] + calls, before[1] + calls)
+    assert rms_ops.bwd_launches == before + 2 * len(cases) + 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_backward_is_one_launch_with_a_strided_dy(rnd, dtype):
+    """A dy that is a strided slice of a wider tensor (rows 2048 apart in
+    a [.., 4096] buffer: every row a view, no copy) goes through the
+    backward in one kernel launch, as the profiler sees it, and matches
+    the plain backward on the same slice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dt, tol = DTYPES[dtype]
+    x, s = rnd((4, 64, 2048), dt), rnd((2048,), dt, 0.1)
+    dy = rnd((4, 64, 4096), dt)[..., 1024:3072]
+    assert dy.stride(-2) == 4096
+    rms_ops.rmsnorm_backward(dy, x, s)           # built and ticketed
+    torch.cuda.synchronize()
+    before = rms_ops.bwd_launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dx, ds = rms_ops.rmsnorm_backward(dy, x, s)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    assert len(kernels) == 1 and "rmsnorm_bwd" in kernels[0], kernels
+    assert rms_ops.bwd_launches == before + 1
+    rdx, rds = rms_ops.rmsnorm_bwd_ref(dy, x, s)
+    torch.testing.assert_close(dx, rdx, rtol=tol, atol=tol)
+    _sum_close(ds, rds, SUM_TOL[dtype])
 
 
 @pytest.mark.requires_cuda
@@ -1087,15 +1117,13 @@ def test_rmsnorm_is_differentiable_on_the_card(rnd):
     x = rnd((6, 10, 512), torch.float32).requires_grad_(True)
     s = rnd((512,), torch.float32, 0.1).requires_grad_(True)
     fwd, bwd = rms_ops.launches, rms_ops.bwd_launches
-    dsc = rms_ops.dscale_launches
     y = rms_ops.rmsnorm(x, s)
     dy = torch.randn_like(y)
     y.backward(dy)
     rdx, rds = rms_ops.rmsnorm_bwd_ref(dy, x.detach(), s.detach())
     torch.testing.assert_close(x.grad, rdx, rtol=2e-5, atol=2e-5)
     _sum_close(s.grad, rds, 1e-4)
-    assert (rms_ops.launches, rms_ops.bwd_launches,
-            rms_ops.dscale_launches) == (fwd + 1, bwd + 1, dsc + 1)
+    assert (rms_ops.launches, rms_ops.bwd_launches) == (fwd + 1, bwd + 1)
     with torch.no_grad():
         rms_ops.rmsnorm(x, s)
     assert (rms_ops.launches, rms_ops.bwd_launches) == (fwd + 2, bwd + 1)
@@ -1105,25 +1133,31 @@ def test_rmsnorm_is_differentiable_on_the_card(rnd):
 @pytest.mark.parametrize("dtype", list(GEMM_DTYPES))
 def test_grouped_gemm_backward_matches_plain(rnd, dtype):
     """dx and dw through the kernel's variants against the plain
-    backward: a capacity off a multiple of 8 (padded for dw), C <= 8 (the
-    decode / skinny variants for dx), two row blocks of dw's K (296), and
-    autograd through `grouped_gemm` (the custom op) giving the same."""
+    backward: a capacity off a multiple of 8 and of 64 (37, and 20 at
+    olmoe's 64 experts), C <= 8 (rows past C zero-filled for dx, a one-step
+    contraction for dw), K and N off multiples of 64
+    (40 x 48, 296 x 136, 64 x 96), and olmoe's training capacity of 640
+    rows at narrow K and N; each twice, bit for bit.  A bf16 product
+    launches no transposed copy, an fp32 one one; autograd through
+    `grouped_gemm` (the custom op) gives the same."""
     dt, tol = GEMM_DTYPES[dtype]
     shapes = ((3, 37, 64, 96), (4, 5, 40, 48), (2, 24, 296, 136),
-              (64, 20, 256, 128))
+              (64, 20, 256, 128), (2, 1, 64, 72), (3, 640, 256, 384))
     d0, w0, t0 = mg_ops.dx_launches, mg_ops.dw_launches, \
         mg_ops.transpose_launches
     for e, c, k, n in shapes:
         x, w = rnd((e, c, k), dt), rnd((e, k, n), dt, k ** -0.5)
         dy = rnd((e, c, n), dt)
-        _sum_close(mg_ops.grouped_gemm_dx(dy, w), mg_ops.moe_gemm_dx_ref(dy, w),
-                   tol)
-        _sum_close(mg_ops.grouped_gemm_dw(x, dy), mg_ops.moe_gemm_dw_ref(x, dy),
-                   tol)
-    n_calls = len(shapes)
+        dx, dw = mg_ops.grouped_gemm_dx(dy, w), mg_ops.grouped_gemm_dw(x, dy)
+        _sum_close(dx, mg_ops.moe_gemm_dx_ref(dy, w), tol)
+        _sum_close(dw, mg_ops.moe_gemm_dw_ref(x, dy), tol)
+        assert torch.equal(dx, mg_ops.grouped_gemm_dx(dy, w)), (e, c, k, n)
+        assert torch.equal(dw, mg_ops.grouped_gemm_dw(x, dy)), (e, c, k, n)
+    n_calls = 2 * len(shapes)
+    copies = 2 * n_calls if dtype == "float32" else 0
     assert (mg_ops.dx_launches, mg_ops.dw_launches,
             mg_ops.transpose_launches) == (d0 + n_calls, w0 + n_calls,
-                                           t0 + 2 * n_calls)
+                                           t0 + copies)
     x = rnd((3, 37, 64), dt).requires_grad_(True)
     w = rnd((3, 64, 96), dt, 0.125).requires_grad_(True)
     y = mg_ops.grouped_gemm(x, w)

@@ -190,19 +190,6 @@ def test_rmsnorm_backward_plain_version_matches_jax():
     assert rms_ops.bwd_launches == before   # the CPU path launches nothing
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dscale_sum_plain_version(dtype):
-    """The backward's column sum of its CTAs' partials: on the CPU the
-    plain version, rows added into fp32 and cast to scale's dtype."""
-    part = torch.randn((5, 96), generator=torch.Generator().manual_seed(0))
-    before = rms_ops.dscale_launches
-    out = rms_ops.dscale_sum(part, dtype)
-    assert out.dtype == dtype and out.shape == (96,)
-    torch.testing.assert_close(out, part.sum(dim=0).to(dtype), rtol=0,
-                               atol=0)
-    assert rms_ops.dscale_launches == before
-
-
 def test_grouped_gemm_backward_plain_version_matches_jax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((4, 13, 32)).astype(np.float32)
