@@ -242,7 +242,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      grouped GEMM's forward, dx and dw launches exact, and no transposed
      copy (bf16 dx and dw read their operands in place); after (b) and
      after (d) one profiled step (`train_profile`: busy share and the top
-     kernels by device time, `train_top`).
+     kernels by device time, `train_top`); (a') as (a) for rwkv6-smoke,
+     recurrentgemma-smoke and seamless-smoke (with 16 seeded speech
+     frames); (e) rwkv6-3b as published (32 layers, d 2560, vocab 65536,
+     3,099,688,960 parameters, 37.2 GB at 12 bytes a parameter, bf16)
+     through `run_training` at (b)'s shape, remat "none" (which fits the
+     80 GB card) and "full" against it, losses within 1e-3 relative;
+     (f) recurrentgemma-9b at full width cut to 6 of its 38 blocks (two rec-rec-attn periods: 2.36 B parameters, 28.3 GB in
+     training; the whole model's 112.8 GB exceed the card); (g)
+     seamless-m4t-large-v2 as published through `make_train_step` (the
+     reference's `run_training` refuses it) on one seeded batch of b 4 x
+     512 speech frames and 128 target tokens; each with (b)'s outputs and
+     exact launches (rwkv6: one WKV6 forward and backward a layer, one
+     more forward a layer under remat; recurrentgemma: one gated RG-LRU
+     forward and backward a recurrent block, 2 L + 1 RMSNorms forward and
+     backward; seamless: none), and one profiled step after (e) and (f).
      Phase 2 holds the backward kernels to autograd of their plain
      versions at these shapes: RMSNorm's (dx, and dscale to
      SUM_TOLERANCE; one kernel a call, as the profiler sees it) at llama's
@@ -254,13 +268,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      backward of `F.rms_norm`; `torch.bmm` on transposed views), and the
      grouped GEMM's forward at those shapes (training's capacity, 640
      rows an expert) beside `torch.bmm`; in fp32 also the transposed
-     copies the fp32 dx and dw run on (beside PyTorch's own copy).
+     copies the fp32 dx and dw run on (beside PyTorch's own copy).  WKV6's
+     backward at (e)'s shape (B 8 x S 512, 40 x 64) and the gated
+     RG-LRU's at (f)'s (B 8 x S 512 x W 4096), bf16 and fp32 inputs, from
+     a nonzero initial state, each held to autograd of its plain version
+     to SUM_TOLERANCE, the same bits on two calls, timed beside the plain
+     backward (no library call computes either).
 
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the paths'
 counted runs, phases 7 and 12 included; the backward kernels' rows,
-`rmsnorm_bwd`, `moe_gemm_dx` and `moe_gemm_dw`, count phase 12's runs and
-are timed at llama's training rows and olmoe's gate/up training product;
+`rmsnorm_bwd`, `moe_gemm_dx`, `moe_gemm_dw`, `wkv6_bwd` and `rglru_bwd`,
+count phase 12's runs and are timed at llama's training rows, olmoe's
+gate/up training product and rwkv6-3b's and recurrentgemma-9b's training
+shapes;
 times at the llama shapes for the attention and norm
 kernels, at olmoe's decode gate/up product for the grouped GEMM, at
 rwkv6-3b's decode step for WKV6 and at recurrentgemma-9b's decode step
@@ -332,6 +353,10 @@ BACKWARD_KERNELS = {
                     "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
     "moe_gemm_dw": ("src/repro_torch/csrc/moe_gemm.cu",
                     "src/repro/kernels/moe_gemm/moe_gemm.py:21"),
+    "wkv6_bwd": ("src/repro_torch/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv6/rwkv6.py:31"),
+    "rglru_bwd": ("src/repro_torch/csrc/rglru.cu",
+                  "src/repro/kernels/rglru/rglru.py:31"),
 }
 BACKWARD_NOTE = ("no Pallas backward exists (the reference trains through "
                  "pure JAX); this kernel is the gradient of the port's "
@@ -471,6 +496,27 @@ def wkv6_flops(b, s, h, n, chunk, exact_v):
     per_chunk = {"tf32": 3 * each + (2 if exact_v else 3) * each,
                  "float32": 4 * chunk * n + 2 * n * n}
     return {kind: b * h * (s // chunk) * x for kind, x in per_chunk.items()}
+
+
+def wkv6_bwd_flops(b, s, h, n, chunk, exact_v):
+    """Operations of the WKV6 backward on these shapes, keyed by the peak
+    (PEAK_FLOPS) they run at, counted as wkv6_flops counts the forward's:
+    the least the card needs for the same gradients is their chunked form,
+    whose products run on tensor cores in 3xTF32.  Per chunk, from the
+    chunk-start states: four products with the state, 2 C N^2 each (dr's
+    dy S^T, dk's v G^T, dv's k G and G's update r^T dy), and five of the
+    intra-chunk weights, C (C - 1) N each (the weights r k^T recomputed,
+    their gradient dy v^T, and its products for dr, dk and dv); each is
+    three TF32 products, two for the two with v where v holds bf16 values
+    (`exact_v`).  The bonus terms of dr, dk, dv and du and dlogw's sums
+    (12 C N) and G's decay (N^2) in fp32."""
+    state, intra = 2 * chunk * n * n, chunk * (chunk - 1) * n
+    with_v = 2 if exact_v else 3
+    per_chunk = {"tf32": 3 * (3 * state + 4 * intra)
+                 + with_v * (state + intra),
+                 "float32": 12 * chunk * n + n * n}
+    return {kind: b * h * -(-s // chunk) * x
+            for kind, x in per_chunk.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -791,6 +837,87 @@ def kernel_checks(torch, ops):
               library_note=RGLRU_LIBRARY_NOTE, graph=s_len == 1,
               record_as="rglru")
 
+    def wkv6_bwd_case(dtype_name, is_main):
+        """WKV6's backward kernel at rwkv6-3b's training shape (phase
+        12(e): B 8 x S 512, 40 x 64 heads; the forward's chunk 32) from a
+        nonzero initial state: dr, dk, dv, dlogw and dbonus held to
+        autograd of the chunked plain version (`wkv6_bwd_ref`) as
+        |err| <= SUM_TOLERANCE (1 + |ref|), the same bits on two calls,
+        timed beside the plain backward (call time: its ~2,000 launches a
+        call overrun the launch queue, so no primed window holds them).
+        Bytes: r, k, v (the type), logw, dy, bonus and the state (fp32)
+        read; dr, dk, dv, dlogw and dbonus written.  Operations: those of
+        the same gradients in chunked form on tensor cores
+        (`wkv6_bwd_flops`), not the kernel's 12 N^2 fp32 a step and head:
+        the bound is the least the card could take."""
+        wk = ops["wkv6"]
+        dt = getattr(torch, dtype_name)
+        e = torch.tensor([], dtype=dt).element_size()
+        b, s, h, n = TRAIN_BATCH, TRAIN_SEQ, 40, 64
+        shape = (b, s, h, n)
+        r, k, v = rnd(shape, dt, 0.5), rnd(shape, dt, 0.5), rnd(shape, dt)
+        logw = (-torch.exp(rnd(shape, torch.float32) - 2.0)).clamp(-4.0,
+                                                                   -1e-6)
+        u = rnd((h, n), torch.float32, 0.2)
+        st0 = rnd((b, h, n, n), torch.float32, 0.5)
+        dy = rnd(shape, torch.float32)
+        m = r.numel()
+        nbytes = 6 * m * e + 3 * 4 * m + 2 * 4 * u.numel() + 4 * st0.numel()
+        note = shape + ("forward chunk 32",
+                        f"{b * h} CTAs of {wk.bwd_threads(n)}",
+                        "nonzero initial state")
+        check("wkv6_bwd", dtype_name, note,
+              lambda: wk.wkv6_backward(dy, r, k, v, logw, u, st0),
+              lambda: wk.wkv6_bwd_ref(dy, r, k, v, logw, u, st0, 32), None,
+              nbytes, wkv6_bwd_flops(b, s, h, n, 32, e == 2), is_main,
+              long_sums=True, library_note=WKV6_LIBRARY_NOTE,
+              plain_reps=3, plain_prime=False)
+        same_bits("wkv6_bwd", dtype_name, note,
+                  lambda: wk.wkv6_backward(dy, r, k, v, logw, u, st0))
+        del r, k, v, logw, dy, st0
+        torch.cuda.empty_cache()
+
+    def rglru_bwd_case(dtype_name, is_main):
+        """The gated RG-LRU's backward kernel at recurrentgemma-9b's
+        training shape (phase 12(f): B 8 x S 512 x W 4096) from a nonzero
+        initial state and the forward kernel's h: dza, dzi, dy and the
+        per-channel sums held to autograd of `rglru_gates_ref` and the
+        associative scan (`rglru_gated_bwd_ref`) to SUM_TOLERANCE, the
+        same bits on two calls, timed beside the plain backward (call
+        time, as WKV6's).  Bytes: za, zi, y (the type), h and dh (fp32),
+        h0 and the [W] vectors read; dza, dzi, dy and the three sums
+        written.  Operations: ~40 fp32 an element."""
+        rg = ops["rglru"]
+        dt = getattr(torch, dtype_name)
+        e = torch.tensor([], dtype=dt).element_size()
+        b, s, w = TRAIN_BATCH, TRAIN_SEQ, 4096
+        shape = (b, s, w)
+        f32 = torch.float32
+        za, zi, y = (rnd(shape, dt) for _ in range(3))
+        vectors = (0.5 * rnd((w,), f32), 0.5 * rnd((w,), f32),
+                   rglru_lambda(w))
+        h0 = rnd((b, w), f32)
+        h, _ = rg.rglru_gated(za, zi, y, *vectors, h0.clone())
+        dh = rnd(shape, f32)
+        m = b * s * w
+        note = shape + (f"za/zi/y {dtype_name}, "
+                        f"{b * -(-w // rg.CTA_THREADS)} CTAs of "
+                        f"{rg.CTA_THREADS}, a thread a channel",
+                        "nonzero initial state")
+        check("rglru_bwd", dtype_name, note,
+              lambda: rg.rglru_gated_backward(dh, za, zi, y, *vectors, h0,
+                                              h),
+              lambda: rg.rglru_gated_bwd_ref(dh, za, zi, y, *vectors, h0),
+              None, 6 * m * e + 2 * 4 * m + 4 * b * w + 6 * 4 * w,
+              {"float32": 40 * m}, is_main, long_sums=True,
+              library_note=RGLRU_LIBRARY_NOTE, plain_reps=3,
+              plain_prime=False)
+        same_bits("rglru_bwd", dtype_name, note,
+                  lambda: rg.rglru_gated_backward(dh, za, zi, y, *vectors,
+                                                  h0, h))
+        del za, zi, y, h, dh
+        torch.cuda.empty_cache()
+
     def sum_check(name, dtype_name, shape, out, ref):
         """A column sum (dscale) held as the long sums are: |err| <=
         SUM_TOLERANCE * (1 + |ref|)."""
@@ -1097,6 +1224,12 @@ def kernel_checks(torch, ops):
                                 (64, 32, 1), (1, 1, MAX_BATCH)):
             wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1,
                       b=b)
+
+        # The training backward of WKV6 and of the gated RG-LRU at
+        # rwkv6-3b's and recurrentgemma-9b's training shapes (phase 12(e)
+        # and (f)).
+        wkv6_bwd_case(dtype_name, is_bf16)
+        rglru_bwd_case(dtype_name, is_bf16)
 
     # The RG-LRU kernel at recurrentgemma-9b's width (4096) and batch 28:
     # the prompt's scan (16 tokens) and the decode step, through the plain
@@ -1878,7 +2011,8 @@ def reset_counts(ops):
         m.launches = 0
     ops["decode_attention"].combine_launches = 0
     ops["flash_attention"].tc_launches = 0
-    ops["rmsnorm"].bwd_launches = 0
+    for name in ("rmsnorm", "wkv6", "rglru"):
+        ops[name].bwd_launches = 0
     for name in ("dx_launches", "dw_launches", "transpose_launches"):
         setattr(ops["moe_gemm"], name, 0)
 
@@ -3226,7 +3360,7 @@ def encdec_full_width(torch, rt, ops, smi):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: training the transformer family on the card
+# Phase 12: training every family on the card
 # ---------------------------------------------------------------------------
 
 #: Phase 12: B sequences of S tokens a step, the steps of each run, the
@@ -3237,16 +3371,33 @@ def encdec_full_width(torch, rt, ops, smi):
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 TRAIN_CRASH_AT, TRAIN_CKPT_EVERY = 5, 2
 OLMOE_TRAIN_LAYERS = 4
-#: 12(a): the narrow fp32 models' batch, AdamW steps and tolerances (the
-#: reference's flash-vs-naive gradient tolerance, tests/test_flash_equiv.py).
-NARROW_TRAIN = dict(batch=4, seq=32, steps=5)
+#: 12(f): recurrentgemma-9b's depth, two (recurrent, recurrent, attention)
+#: periods of its 38 blocks: the whole model's 9.40 B parameters take 112.8
+#: GB at 12 bytes a parameter in training; 6 blocks hold 2.36 B (28.3 GB).
+RGLRU_TRAIN_LAYERS = 6
+#: 12(g): the encoder-decoder's batch (phase 11's b 4 x 512 speech frames)
+#: and its target tokens.
+ENCDEC_TRAIN = dict(batch=4, frames=512, tokens=128)
+#: 12(a) and (a'): the narrow fp32 models, their batch, AdamW steps and
+#: tolerances (the reference's flash-vs-naive gradient tolerance,
+#: tests/test_flash_equiv.py); the encoder-decoder's speech frames.
+NARROW_TRAIN_ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "rwkv6-3b",
+                      "recurrentgemma-9b", "seamless-m4t-large-v2")
+NARROW_TRAIN = dict(batch=4, seq=32, steps=5, frames=16)
 GRAD_NORM_TOL, GRAD_ELEM_TOL, NARROW_LOSS_TOL = 1e-3, 5e-3, 1e-4
+#: Attention's key biases (leaves named "bk") have a zero gradient in exact
+#: arithmetic: a bias on the keys moves every score of a query by the same
+#: amount, which the softmax cancels.  Their gradient norm must be rounding
+#: noise, at most this share of the largest leaf's (fp32 keeps ~1e-7 of a
+#: sum), on both sides.
+ZERO_GRAD_REL = 1e-6
 #: 12(b)-(c): resumed and remat losses against the uninterrupted run's.
 TRAIN_LOSS_TOL = 1e-3
 #: The counters a training step moves, by name.
 TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "moe_gemm",
                   "moe_gemm_dx", "moe_gemm_dw", "moe_gemm_transpose",
-                  "flash_attention", "decode_attention", "wkv6", "rglru")
+                  "flash_attention", "decode_attention", "wkv6", "rglru",
+                  "wkv6_bwd", "rglru_bwd")
 
 
 def train_counts():
@@ -3256,45 +3407,75 @@ def train_counts():
 
 
 def expected_train_launches(cfg, steps):
-    """Kernel launches of `steps` training steps of a transformer config
-    from the config alone.  A block's RMSNorms (two, the post-norms and
-    the qk-norm's two where it has them) and the final norm run forward
-    and backward once a step, the backward in one launch (its rows and
-    dscale's column sum); remat recomputes the blocks' forward in the
-    backward, relaunching their norms, and under "full" their grouped
+    """Kernel launches of `steps` training steps of a config from the
+    config alone.  The transformer: a block's RMSNorms (two, the
+    post-norms and the qk-norm's two where it has them) and the final norm
+    run forward and backward once a step, the backward in one launch (its
+    rows and dscale's column sum); remat recomputes the blocks' forward in
+    the backward, relaunching their norms, and under "full" their grouped
     GEMMs (under "dots" the products' outputs are kept).  A MoE layer runs
     three grouped products, each with a dx and a dw in the backward: in
     bf16 with their operands in place, in fp32 each on one transposed
-    copy."""
-    per_layer = 0
-    if cfg.norm == "rmsnorm":
-        per_layer = 2 + (2 if cfg.post_norms else 0)
-    per_layer += 2 if cfg.qk_norm else 0
-    norms = cfg.n_layers * per_layer + (cfg.norm == "rmsnorm")
-    gemms = 3 * cfg.n_layers if cfg.moe is not None else 0
-    rec_norms = cfg.n_layers * per_layer if cfg.remat != "none" else 0
-    rec_gemms = gemms if cfg.remat == "full" else 0
+    copy.  rwkv6: one WKV6 forward and one backward a layer, and under any
+    remat but "none" one more forward a layer (the layer recomputed).
+    recurrentgemma: one gated RG-LRU forward and backward a recurrent
+    block, 2 L + 1 RMSNorms forward and backward (remat recomputes
+    nothing, as in the reference).  The encoder-decoder: none."""
     import torch
-    copies = 2 * gemms if cfg.dtype == torch.float32 else 0
-    per_step = {"rmsnorm": norms + rec_norms, "rmsnorm_bwd": norms,
-                "moe_gemm": gemms + rec_gemms, "moe_gemm_dx": gemms,
-                "moe_gemm_dw": gemms, "moe_gemm_transpose": copies}
+
+    from repro_torch.models.registry import bundle_for
+    family = bundle_for(cfg).family
+    per_step = {}
+    if family == "transformer":
+        per_layer = 0
+        if cfg.norm == "rmsnorm":
+            per_layer = 2 + (2 if cfg.post_norms else 0)
+        per_layer += 2 if cfg.qk_norm else 0
+        norms = cfg.n_layers * per_layer + (cfg.norm == "rmsnorm")
+        gemms = 3 * cfg.n_layers if cfg.moe is not None else 0
+        rec_norms = cfg.n_layers * per_layer if cfg.remat != "none" else 0
+        rec_gemms = gemms if cfg.remat == "full" else 0
+        copies = 2 * gemms if cfg.dtype == torch.float32 else 0
+        per_step = {"rmsnorm": norms + rec_norms, "rmsnorm_bwd": norms,
+                    "moe_gemm": gemms + rec_gemms, "moe_gemm_dx": gemms,
+                    "moe_gemm_dw": gemms, "moe_gemm_transpose": copies}
+    elif family == "rwkv6":
+        per_step = {"wkv6": cfg.n_layers * (1 + (cfg.remat != "none")),
+                    "wkv6_bwd": cfg.n_layers}
+    elif family == "rglru":
+        norms = 2 * cfg.n_layers + 1
+        per_step = {"rglru": cfg.n_recurrent, "rglru_bwd": cfg.n_recurrent,
+                    "rmsnorm": norms, "rmsnorm_bwd": norms}
     return {k: steps * per_step.get(k, 0) for k in TRAIN_COUNTERS}
 
 
+def hold_train_launches(label, counts, cfg, steps, totals):
+    """Fail unless a run's launch counts are what `steps` steps of `cfg`
+    imply; add them to `totals`."""
+    want = expected_train_launches(cfg, steps)
+    say(f"train {label} launch counts {counts} expected {want}")
+    if counts != want:
+        fail(f"train {label}: launch counts {counts} != {want}")
+    for k in totals:
+        totals[k] += counts[k]
+
+
 def narrow_train_check(torch, rt, card="cuda"):
-    """12(a): llama3.2-1b-smoke and olmoe-1b-7b-smoke in fp32, the same
-    params and batch on the card and on the CPU (plain versions): every
-    leaf's gradient present, per leaf |g_card - g_cpu| <= 1e-3 |g_cpu| and
-    elementwise within 5e-3, then NARROW_TRAIN["steps"] AdamW steps
-    (`make_train_step`) whose losses agree within 1e-4 relative."""
+    """12(a) and (a'): the smoke configs of NARROW_TRAIN_ARCHS in fp32
+    (llama3.2-1b and olmoe-1b-7b, then rwkv6, recurrentgemma and
+    seamless), the same params and batch on the card and on the CPU
+    (plain versions): every leaf's gradient present, per leaf
+    |g_card - g_cpu| <= 1e-3 |g_cpu| and elementwise within 5e-3, then
+    NARROW_TRAIN["steps"] AdamW steps (`make_train_step`) whose losses
+    agree within 1e-4 relative.  The encoder-decoder's batches add
+    NARROW_TRAIN["frames"] seeded speech frames."""
     import dataclasses
 
     from repro_torch.launch.steps import make_train_step
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import tree
     from repro_torch.training.data import DataConfig, SyntheticLM
-    for arch in ("llama3.2-1b", "olmoe-1b-7b"):
+    for arch in NARROW_TRAIN_ARCHS:
         cfg = dataclasses.replace(rt.configs.get_smoke(arch),
                                   dtype=torch.float32)
         bundle = rt.bundle_for(cfg)
@@ -3302,20 +3483,37 @@ def narrow_train_check(torch, rt, card="cuda"):
         data = SyntheticLM(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=NARROW_TRAIN["seq"],
             global_batch=NARROW_TRAIN["batch"], seed=1))
+
+        def batch_at(i, device, bundle=bundle, data=data, cfg=cfg):
+            b = dict(data.batch(i))
+            if bundle.family == "encdec":
+                gen = torch.Generator().manual_seed(i)
+                b["speech_embeddings"] = torch.randn(
+                    (NARROW_TRAIN["batch"], NARROW_TRAIN["frames"],
+                     cfg.d_model), generator=gen)
+            return {k: v.to(device) for k, v in b.items()}
         grads = {}
         for side, device in (("card", card), ("cpu", "cpu")):
             p = tree.tree_map(
                 lambda t: t.to(device, copy=True).requires_grad_(True),
                 params)
-            b = {k: v.to(device) for k, v in data.batch(0).items()}
-            loss = bundle.loss_fn(p, b)
+            loss = bundle.loss_fn(p, batch_at(0, device))
             grads[side] = (loss.item(), [
                 g.cpu() for g in torch.autograd.grad(loss, tree.leaves(p))])
         worst_norm = worst_elem = 0.0
+        # A key bias's gradient is rounding noise on both sides, which no
+        # relative norm compares: both norms must be at rounding level
+        # (ZERO_GRAD_REL), and the elementwise test holds it as any other.
+        scale = max(g.norm().item() for g in grads["cpu"][1])
+        zero = []
         for (path, _), gc, gh in zip(tree.flatten_with_paths(params),
                                      grads["card"][1], grads["cpu"][1]):
             rel = ((gc - gh).norm() / gh.norm()).item()
             elem = ((gc - gh).abs() - GRAD_ELEM_TOL * gh.abs()).max().item()
+            if path.rsplit("/", 1)[-1] == "bk":
+                zero.append(path)
+                rel = 0.0 if max(gc.norm().item(), gh.norm().item()) \
+                    <= ZERO_GRAD_REL * scale else math.inf
             worst_norm, worst_elem = max(worst_norm, rel), max(worst_elem,
                                                                elem)
             if not (torch.isfinite(gc).all() and rel <= GRAD_NORM_TOL
@@ -3332,13 +3530,14 @@ def narrow_train_check(torch, rt, card="cuda"):
             p = tree.tree_map(lambda t: t.to(device, copy=True), params)
             state, out = opt_mod.init(p), []
             for i in range(NARROW_TRAIN["steps"]):
-                b = {k: v.to(device) for k, v in data.batch(i).items()}
-                p, state, metrics = step(p, state, b)
+                p, state, metrics = step(p, state, batch_at(i, device))
                 out.append(metrics["loss"].item())
             losses[side] = out
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
                                                        losses["cpu"]))
-        say(f"train narrow {arch} fp32: {len(grads['cpu'][1])} leaves, "
+        say(f"train narrow {arch} fp32: {len(grads['cpu'][1])} leaves "
+            f"({len(zero)} key biases, a zero gradient at rounding level "
+            f"on both sides: {zero}), "
             f"loss card {grads['card'][0]:.7f} cpu {grads['cpu'][0]:.7f}, "
             f"worst leaf |dg|/|g| {worst_norm:.3e} (tol {GRAD_NORM_TOL:g}), "
             f"worst elementwise excess {worst_elem:.3e} (tol "
@@ -3351,12 +3550,15 @@ def narrow_train_check(torch, rt, card="cuda"):
                  f"CPU's by {rel:.3e} relative")
 
 
-def train_run(torch, ops, label, arch, smi, expect=True, **kw):
-    """One `run_training` call at B TRAIN_BATCH x S TRAIN_SEQ on the card
-    with every counter at 0 just before and read just after: the summary,
-    its counts and its peak memory.  `expect` False: the run must raise
-    the injected failure."""
-    from repro_torch.launch.train import run_training
+def counted_train_run(torch, ops, label, smi, run, tokens):
+    """Call `run()` on the card with every counter at 0 just before and
+    read just after.  `run` returns a summary as `run_training` does
+    (start_step, steps_run, step_s, losses), or None where it raised the
+    failure it was asked to inject.  Prints the median step time (the
+    first step left out), tokens/s at `tokens` a step, the run's own peak
+    memory (the peak less what was allocated before it), the losses and
+    the counts, and fails on a loss that is not finite.  Returns the
+    summary, the counts and the peak."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -3364,36 +3566,44 @@ def train_run(torch, ops, label, arch, smi, expect=True, **kw):
     held = torch.cuda.memory_allocated() / 1e9
     reset_counts(ops)
     t0 = time.monotonic()
-    try:
-        out = run_training(arch, smoke=False, global_batch=TRAIN_BATCH,
-                           seq_len=TRAIN_SEQ, device="cuda", log_every=1,
-                           **kw)
-    except RuntimeError as e:
-        if expect or "injected failure" not in str(e):
-            raise
-        out = None
+    out = run()
     torch.cuda.synchronize()
     counts = train_counts()
-    # The run's own peak: the peak less what was allocated before it.
     peak = torch.cuda.max_memory_allocated() / 1e9 - held
     wall = time.monotonic() - t0
     if out is None:
-        say(f"train {label}: injected failure at step "
-            f"{kw['fail_at_step']} wall_s={wall:.2f} peak_gb={peak:.2f} "
-            f"counts={counts}")
+        say(f"train {label}: the injected failure raised, wall_s="
+            f"{wall:.2f} peak_gb={peak:.2f} counts={counts}")
         return None, counts, peak
-    steps = out["steps_run"]
     step_s = statistics.median(out["step_s"][1:] or out["step_s"])
     say(f"train {label} ({smi}): steps {out['start_step']}.."
-        f"{out['start_step'] + steps - 1} step_ms={step_s * 1e3:.2f} "
-        f"first_step_ms={out['step_s'][0] * 1e3:.2f} tokens_per_s="
-        f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} peak_gb={peak:.2f} "
-        f"held_before_gb={held:.2f} "
-        f"wall_s={wall:.2f} losses={[round(x, 5) for x in out['losses']]} "
-        f"counts={counts}")
+        f"{out['start_step'] + out['steps_run'] - 1} step_ms="
+        f"{step_s * 1e3:.2f} first_step_ms={out['step_s'][0] * 1e3:.2f} "
+        f"tokens_per_s={tokens / step_s:.0f} peak_gb={peak:.2f} "
+        f"held_before_gb={held:.2f} wall_s={wall:.2f} "
+        f"losses={[round(x, 5) for x in out['losses']]} counts={counts}")
     if not all(math.isfinite(x) for x in out["losses"]):
         fail(f"train {label}: a loss is not finite: {out['losses']}")
     return out, counts, peak
+
+
+def train_run(torch, ops, label, arch, smi, expect=True, **kw):
+    """One `run_training` call at B TRAIN_BATCH x S TRAIN_SEQ on the card,
+    counted (`counted_train_run`).  `expect` False: the run must raise the
+    injected failure."""
+    from repro_torch.launch.train import run_training
+
+    def run():
+        try:
+            return run_training(arch, smoke=False, global_batch=TRAIN_BATCH,
+                                seq_len=TRAIN_SEQ, device="cuda",
+                                log_every=1, **kw)
+        except RuntimeError as e:
+            if expect or "injected failure" not in str(e):
+                raise
+            return None
+    return counted_train_run(torch, ops, label, smi, run,
+                             TRAIN_BATCH * TRAIN_SEQ)
 
 
 #: `train_top` lines a profiled step prints.
@@ -3470,12 +3680,7 @@ def train_on_card(torch, rt, ops, smi):
     totals = dict.fromkeys(TRAIN_COUNTERS, 0)
 
     def held(label, counts, cfg, steps):
-        want = expected_train_launches(cfg, steps)
-        say(f"train {label} launch counts {counts} expected {want}")
-        if counts != want:
-            fail(f"train {label}: launch counts {counts} != {want}")
-        for k in totals:
-            totals[k] += counts[k]
+        hold_train_launches(label, counts, cfg, steps, totals)
 
     llama = rt.configs.get("llama3.2-1b")
     n_tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3487,13 +3692,8 @@ def train_on_card(torch, rt, ops, smi):
     base, counts, _ = train_run(torch, ops, "llama3.2-1b", "llama3.2-1b",
                                 smi, steps=TRAIN_STEPS)
     held("llama3.2-1b", counts, llama, TRAIN_STEPS)
-    step_s = statistics.median(base["step_s"][1:])
-    say(f"train llama3.2-1b model_flop_utilization="
-        f"{6 * llama.n_params * n_tokens / step_s / PEAK_FLOPS['bfloat16']:.4f}"
-        f" (6 N tokens / step_s / 989e12; {smi})")
-    if not base["losses"][-1] < base["losses"][0]:
-        fail(f"train llama3.2-1b: the last loss is not below the first: "
-             f"{base['losses']}")
+    train_report("llama3.2-1b", base, 6 * llama.n_params * n_tokens,
+                 f"6 N tokens, N {llama.n_params}", smi)
     train_profile(torch, rt, "llama3.2-1b", llama, smi)
 
     # 12(b): a crash at TRAIN_CRASH_AT with a checkpoint every
@@ -3503,7 +3703,8 @@ def train_on_card(torch, rt, ops, smi):
     shutil.rmtree(ckpt, ignore_errors=True)
     kw = dict(steps=TRAIN_STEPS, ckpt_dir=str(ckpt),
               ckpt_every=TRAIN_CKPT_EVERY, ckpt_keep=1)
-    _, counts, _ = train_run(torch, ops, "llama3.2-1b crash", "llama3.2-1b",
+    _, counts, _ = train_run(torch, ops, f"llama3.2-1b crash at step "
+                             f"{TRAIN_CRASH_AT}", "llama3.2-1b",
                              smi, expect=False, fail_at_step=TRAIN_CRASH_AT,
                              **kw)
     held("llama3.2-1b crash", counts, llama, TRAIN_CRASH_AT)
@@ -3557,17 +3758,152 @@ def train_on_card(torch, rt, ops, smi):
                                steps=TRAIN_STEPS,
                                overrides={"n_layers": OLMOE_TRAIN_LAYERS})
     held("olmoe-1b-7b", counts, olmoe, TRAIN_STEPS)
-    step_s = statistics.median(out["step_s"][1:])
-    say(f"train olmoe-1b-7b model_flop_utilization="
-        f"{6 * olmoe.n_active_params * n_tokens / step_s / PEAK_FLOPS['bfloat16']:.4f}"
-        f" (6 N_active tokens / step_s / 989e12, N_active "
-        f"{olmoe.n_active_params}; {smi})")
-    if not out["losses"][-1] < out["losses"][0]:
-        fail(f"train olmoe-1b-7b: the last loss is not below the first: "
-             f"{out['losses']}")
+    train_report("olmoe-1b-7b", out, 6 * olmoe.n_active_params * n_tokens,
+                 f"6 N_active tokens, N_active {olmoe.n_active_params}", smi)
     train_profile(torch, rt, f"olmoe-1b-7b ({OLMOE_TRAIN_LAYERS} layers)",
                   olmoe, smi)
     return totals
+
+
+def train_report(label, out, flops, basis, smi):
+    """A run's model-FLOP utilization (`flops` a step, counted as `basis`
+    says, / step s / 989e12) and the check that its last loss is below its
+    first."""
+    step_s = statistics.median(out["step_s"][1:])
+    say(f"train {label} model_flop_utilization="
+        f"{flops / step_s / PEAK_FLOPS['bfloat16']:.4f} ({basis} / step_s "
+        f"/ 989e12; {smi})")
+    if not out["losses"][-1] < out["losses"][0]:
+        fail(f"train {label}: the last loss is not below the first: "
+             f"{out['losses']}")
+
+
+def train_recurrent_on_card(torch, rt, ops, smi):
+    """Phase 12(e)-(f): rwkv6-3b as published through `run_training`
+    (remat "none", which fits the 80 GB card, and "full" against it),
+    and recurrentgemma-9b at full width cut to RGLRU_TRAIN_LAYERS blocks,
+    each at B TRAIN_BATCH x S TRAIN_SEQ for TRAIN_STEPS steps with its
+    launches exact, then one profiled step.  Returns the launch totals of
+    the counted runs."""
+    import dataclasses
+    totals = dict.fromkeys(TRAIN_COUNTERS, 0)
+
+    # 12(e): rwkv6-3b as published.
+    rw = rt.configs.get("rwkv6-3b")
+    say(f"train rwkv6-3b: {rw.n_layers} layers d_model {rw.d_model} "
+        f"{rw.n_heads} x {rw.head_dim} d_ff {rw.d_ff} vocab "
+        f"{rw.vocab_size} n_params {rw.n_params} "
+        f"({12 * rw.n_params / 1e9:.1f} GB at 12 bytes a parameter: bf16 "
+        f"param and grad, fp32 m and v), bf16, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, chunk {rw.chunk}")
+    runs = {}
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(rw, remat=remat)
+        out, counts, peak = train_run(
+            torch, ops, f"rwkv6-3b remat={remat}", "rwkv6-3b", smi,
+            steps=TRAIN_STEPS, overrides={"remat": remat})
+        hold_train_launches(f"rwkv6-3b remat={remat}", counts, cfg,
+                            TRAIN_STEPS, totals)
+        train_report(f"rwkv6-3b remat={remat}", out,
+                     6 * rw.n_params * TRAIN_BATCH * TRAIN_SEQ,
+                     f"6 N tokens, N {rw.n_params}", smi)
+        card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+        say(f"train rwkv6-3b remat={remat}: peak {peak:.2f} GB of the "
+            f"card's {card_gb:.1f}")
+        runs[remat] = out
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(runs["full"]["losses"], runs["none"]["losses"]))
+    say(f"train rwkv6-3b remat=full: worst rel loss vs none {rel:.3e} "
+        f"(tol {TRAIN_LOSS_TOL:g})")
+    if not rel <= TRAIN_LOSS_TOL:
+        fail(f"train rwkv6-3b remat=full: losses off remat=none by "
+             f"{rel:.3e}")
+    train_profile(torch, rt, "rwkv6-3b", rw, smi)
+
+    # 12(f): recurrentgemma-9b at full width, cut in depth.
+    full = rt.configs.get("recurrentgemma-9b")
+    rg = dataclasses.replace(full, n_layers=RGLRU_TRAIN_LAYERS)
+    say(f"train recurrentgemma-9b: d_model {rg.d_model}, lru_width "
+        f"{rg.width}, {rg.n_heads}/{rg.n_kv_heads} x {rg.head_dim} local "
+        f"attention (window {rg.sliding_window}, naive as the reference "
+        f"trains), d_ff {rg.d_ff}, vocab {rg.vocab_size} (tied); cut to "
+        f"{RGLRU_TRAIN_LAYERS} of its {full.n_layers} blocks "
+        f"({rg.block_types}): {full.n_params} parameters x 12 bytes = "
+        f"{12 * full.n_params / 1e9:.1f} GB > the card's 80; "
+        f"{rg.n_params} parameters ({12 * rg.n_params / 1e9:.1f} GB) at "
+        f"{RGLRU_TRAIN_LAYERS} blocks, {rg.n_recurrent} of them recurrent")
+    out, counts, peak = train_run(
+        torch, ops, "recurrentgemma-9b", "recurrentgemma-9b", smi,
+        steps=TRAIN_STEPS, overrides={"n_layers": RGLRU_TRAIN_LAYERS})
+    hold_train_launches("recurrentgemma-9b", counts, rg, TRAIN_STEPS, totals)
+    train_report("recurrentgemma-9b", out,
+                 6 * rg.n_params * TRAIN_BATCH * TRAIN_SEQ,
+                 f"6 N tokens, N {rg.n_params}", smi)
+    say(f"train recurrentgemma-9b: depth {RGLRU_TRAIN_LAYERS} of "
+        f"{full.n_layers} blocks, measured peak {peak:.2f} GB")
+    train_profile(torch, rt, f"recurrentgemma-9b ({RGLRU_TRAIN_LAYERS} "
+                  f"blocks)", rg, smi)
+    return totals
+
+
+def train_encdec_on_card(torch, rt, ops, smi):
+    """Phase 12(g): seamless-m4t-large-v2 as published (bf16, seeded
+    weights) through `make_train_step` (the reference's `run_training`
+    refuses the encoder-decoder), TRAIN_STEPS steps on one seeded batch of
+    ENCDEC_TRAIN's AudioStub speech frames and target tokens, counted
+    (`counted_train_run`, tokens/s of target tokens): model-FLOP utilization
+    (6 x (encoder parameters x frames + the rest x target tokens)), the
+    losses falling, and no kernel launched (naive attention, LayerNorm,
+    ReLU MLP, as in the reference)."""
+    import gc
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.frontends import AudioStub
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.tree import leaves
+    cfg = rt.configs.get("seamless-m4t-large-v2")
+    bundle = rt.bundle_for(cfg)
+    b, frames, n_tok = (ENCDEC_TRAIN[k] for k in ("batch", "frames",
+                                                  "tokens"))
+    n_enc = sum(t.numel() for t in leaves(
+        [bundle.abstract_params()[k] for k in ("enc_layers",
+                                               "enc_final_norm")]))
+    say(f"train seamless-m4t-large-v2: {cfg.n_enc_layers}+"
+        f"{cfg.n_dec_layers} layers d_model {cfg.d_model} {cfg.n_heads} x "
+        f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} (tied) "
+        f"n_params {cfg.n_params} ({n_enc} in the encoder), bf16, "
+        f"b {b} x {frames} speech frames, {n_tok} target tokens, "
+        f"{TRAIN_STEPS} steps of make_train_step on one seeded batch")
+
+    def run():
+        params = bundle.init_params(0, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        toks = torch.randint(1, cfg.vocab_size, (b, n_tok + 1),
+                             generator=gen, device="cuda")
+        batch = {"speech_embeddings": AudioStub(
+                     num_frames=frames, d_model=cfg.d_model).synth(gen, b),
+                 "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        state = opt_mod.init(params)
+        step = make_train_step(bundle, opt_mod.AdamWConfig(
+            lr=3e-4, warmup_steps=min(10, TRAIN_STEPS),
+            total_steps=TRAIN_STEPS))
+        losses, step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.monotonic()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.monotonic() - t0)
+        return {"start_step": 0, "steps_run": TRAIN_STEPS,
+                "step_s": step_s, "losses": losses}
+    out, counts, _ = counted_train_run(torch, ops, "seamless-m4t-large-v2",
+                                       smi, run, b * n_tok)
+    train_report("seamless-m4t-large-v2", out,
+                 6 * (n_enc * b * frames + (cfg.n_params - n_enc) * b * n_tok),
+                 "6 x (encoder N x frames + the rest x target tokens)", smi)
+    hold_train_launches("seamless-m4t-large-v2", counts, cfg, TRAIN_STEPS,
+                        dict.fromkeys(TRAIN_COUNTERS, 0))
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -3714,7 +4050,10 @@ def main() -> None:
     t12 = time.monotonic()
     narrow_train_check(torch, rt)
     train_totals = train_on_card(torch, rt, ops, smi)
-    for name in ("rmsnorm", "moe_gemm"):
+    for name, n in train_recurrent_on_card(torch, rt, ops, smi).items():
+        train_totals[name] += n
+    train_encdec_on_card(torch, rt, ops, smi)
+    for name in ("rmsnorm", "moe_gemm", "wkv6", "rglru"):
         totals[name] += train_totals[name]
     say(f"phase 12 seconds={time.monotonic() - t12:.1f}")
 

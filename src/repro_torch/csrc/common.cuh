@@ -44,4 +44,23 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Whether this CTA is the last of `n` to reach `counter` (a ticket on a
+// device counter, zero before the first arrival).  Every thread's writes
+// before the call are made visible to the other CTAs first (the CTA
+// barrier, then thread 0's fence, which is cumulative); atomicInc wraps the
+// counter back to 0 at the n-th arrival, so it is zero again for the next
+// launch.  Every thread of the CTA calls it.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* counter,
+                                               unsigned int n, bool* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool last = atomicInc(counter, n - 1) == n - 1;
+    if (last) __threadfence();
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag;
+}
+
 }  // namespace repro

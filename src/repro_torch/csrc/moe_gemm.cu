@@ -393,7 +393,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                         int C, int K, int N) {
   extern __shared__ unsigned char wg_smem[];
   const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;  // swizzle atoms
-  const uint32_t bars = base + kWgStages * kWgStageBytes;
+  // The mbarriers follow the two warpgroups' output staging buffers, which
+  // the epilogue writes while the producer's next loads are in flight.
+  const uint32_t bars = base + kWgStages * kWgStageBytes + 2 * kWgOutBytes;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kWgStages + s); };
   const int col_tiles = (N + kWgN - 1) / kWgN;

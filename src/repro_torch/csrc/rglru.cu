@@ -213,6 +213,161 @@ int launch(const Args& a, int vec, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --- the backward of the gated front end ---------------------------------
+//
+// Gradients of h (and not of the final state) given dh, from the same
+// inputs and h0 (a constant) and the forward's h, which gives h_{t-1} for
+// t > 0.  Per channel, walking t from S - 1 down to 0 with the gates made
+// again as the forward makes them:
+//   g_t = dh_t + a_{t+1} g_{t+1}                 (the gradient reaching h_t)
+//   dlog_a_t = g_t h_{t-1} a_t
+//            - g_t (i y) a^2 / sqrt(1 - a^2)     (where 1 - a^2 > 1e-9; the
+//                                                 clamp passes no gradient)
+//   dza = dlog_a (-8 softplus(lambda)) r (1 - r),
+//   dzi = g sqrt(max(1 - a^2, 1e-9)) y i (1 - i),
+//   dy  = g sqrt(max(1 - a^2, 1e-9)) i,
+// and the sums over B and S: d b_a = sum dza, d b_i = sum dzi, d lambda =
+// -8 sigmoid(lambda) sum dlog_a r.  A thread walks one channel of one
+// batch row backward (so B x W threads: at recurrentgemma-9b's training
+// shape 128 CTAs, against the forward's 32 of 4 channels a thread), keeps
+// a ring of kBwdDepth steps of loads in flight ahead of its walk (the
+// inputs as stored, converted at use), and carries its three sums in fp64
+// over S.  The sums over B are taken in the same launch without atomic
+// sums: each CTA writes its row's sums to `part`, and the last of a column
+// of B CTAs to finish (a ticket, `last_to_arrive`) adds them in b order,
+// in fp64.  The same inputs give the same bits.  Accesses are one element
+// a thread, coalesced across a warp, whatever W, the strides or the bases.
+//
+// Bound on the H100: bytes.  At recurrentgemma-9b's training shape (B 8,
+// S 512, W 4096, bf16 za, zi, y) it reads za, zi, y, h and dh and writes
+// dza, dzi and dy once: ~335 MB, 0.1 ms at 3.35 TB/s.
+
+constexpr int kBwdDepth = 8;    // steps of loads in flight ahead of the walk
+
+struct BwdArgs {
+  const void* za;
+  const void* zi;
+  const void* y;
+  const float* b_a;
+  const float* b_i;
+  const float* lam;
+  const float* h0;     // [B, W], the initial state
+  const float* h;      // [B, S, W], the forward's output
+  const float* dh;     // [B, S, W]
+  void* dza;           // [B, S, W] contiguous, the inputs' type
+  void* dzi;
+  void* dy;
+  float* part;         // [3, B, W]: each row's sums over S
+  unsigned int* tickets;
+  float* d_b_a;        // [W]
+  float* d_b_i;
+  float* d_lam;
+  int B, S, W;
+  long long sb, ss;    // the inputs' batch and step strides, in elements
+};
+
+__device__ __forceinline__ float sigmoid_acc(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rglru_gated_bwd_kernel(const BwdArgs a) {
+  __shared__ bool last;
+  const int w = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = w < a.W;
+  const long long row = blockIdx.y;
+  if (live) {
+    const T* in[3];
+    const void* bases[3] = {a.za, a.zi, a.y};
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      in[k] = static_cast<const T*>(bases[k]) + row * a.sb + w;
+    const long long o = row * a.S * a.W + w;
+    T* out[3] = {static_cast<T*>(a.dza) + o, static_cast<T*>(a.dzi) + o,
+                 static_cast<T*>(a.dy) + o};
+
+    // Step t's loads, as stored: za, zi, y; dh and h_{t-1}.
+    T rx[kBwdDepth][3];
+    float rf[kBwdDepth][2];
+    auto load = [&](int t, T (&x)[3], float (&f)[2]) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        x[k] = in[k][static_cast<long long>(t) * a.ss];
+      f[0] = a.dh[o + static_cast<long long>(t) * a.W];
+      f[1] = t > 0 ? a.h[o + static_cast<long long>(t - 1) * a.W]
+                   : a.h0[row * a.W + w];
+    };
+#pragma unroll
+    for (int d = 0; d < kBwdDepth; ++d)
+      if (d < a.S) load(a.S - 1 - d, rx[d], rf[d]);
+    const float ba = a.b_a[w], bi = a.b_i[w], lam = a.lam[w];
+    const float neg_c = -8.f * (lam > 20.f ? lam : log1pf(expf(lam)));
+    float carry = 0.f;
+    double s_a = 0.0, s_i = 0.0, s_l = 0.0;
+
+    for (int t0 = a.S - 1; t0 >= 0; t0 -= kBwdDepth) {
+#pragma unroll
+      for (int d = 0; d < kBwdDepth; ++d) {
+        const int t = t0 - d;
+        if (t < 0) break;
+        const float za = repro::to_f(rx[d][0]), zi = repro::to_f(rx[d][1]);
+        const float yv = repro::to_f(rx[d][2]);
+        const float dh = rf[d][0], hp = rf[d][1];
+        if (t - kBwdDepth >= 0) load(t - kBwdDepth, rx[d], rf[d]);
+        const float r = sigmoid_acc(za + ba);
+        const float i = sigmoid_acc(zi + bi);
+        const float av = expf(neg_c * r);
+        const float q = 1.f - av * av;
+        const float s = sqrtf(fmaxf(q, 1e-9f));
+        const float g = dh + carry;
+        const float xin = i * yv;
+        float dla = g * hp * av;
+        if (q > 1e-9f) dla -= g * xin * (av * av / s);
+        const float dxin = g * s;
+        const float dza = dla * neg_c * (r * (1.f - r));
+        const float dzi = dxin * yv * (i * (1.f - i));
+        const long long ot = static_cast<long long>(t) * a.W;
+        out[0][ot] = repro::from_f<T>(dza);
+        out[1][ot] = repro::from_f<T>(dzi);
+        out[2][ot] = repro::from_f<T>(dxin * i);
+        s_a += static_cast<double>(dza);
+        s_i += static_cast<double>(dzi);
+        s_l += static_cast<double>(dla * r);
+        carry = av * g;
+      }
+    }
+    const long long pw = row * a.W + w, plane = static_cast<long long>(a.B)
+                                                * a.W;
+    a.part[pw] = static_cast<float>(s_a);
+    a.part[plane + pw] = static_cast<float>(s_i);
+    a.part[2 * plane + pw] =
+        static_cast<float>(s_l * (-8.0 * sigmoid_acc(lam)));
+  }
+  // The last of the column's B CTAs adds the rows' sums in b order.
+  if (!repro::last_to_arrive(a.tickets + blockIdx.x, a.B, &last) || !live)
+    return;
+  float* outs[3] = {a.d_b_a, a.d_b_i, a.d_lam};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    double acc = 0.0;
+    for (int b = 0; b < a.B; ++b)
+      acc += a.part[(static_cast<long long>(k) * a.B + b) * a.W + w];
+    outs[k][w] = static_cast<float>(acc);
+  }
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs& a, void* stream) {
+  if (a.B < 1 || a.S < 1 || a.W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.W + kThreads - 1) / kThreads, a.B);
+  rglru_gated_bwd_kernel<T><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int rglru_launch(const void* log_a, const void* b, void* state,
@@ -237,5 +392,32 @@ extern "C" int rglru_gated_launch(const void* za, const void* zi,
   if (dtype == repro::kFloat32) return launch<true, float>(a, vec, stream);
   if (dtype == repro::kBFloat16)
     return launch<true, __nv_bfloat16>(a, vec, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of `rglru_gated_launch` given dh fp32 [B, S, W] contiguous:
+// the inputs as there, h0 the state before the forward and h its output
+// (fp32, contiguous).  Writes dza, dzi and dy ([B, S, W] contiguous, the
+// inputs' type) and d_b_a, d_b_i and d_lam (fp32 [W]); `part` holds
+// 3 x B x W fp32 and `tickets` ceil(W / 256) zeroed counters (zero again
+// after the launch).
+extern "C" int rglru_gated_bwd_launch(
+    const void* za, const void* zi, const void* y, const void* b_a,
+    const void* b_i, const void* lam, const void* h0, const void* h,
+    const void* dh, void* dza, void* dzi, void* dy, void* part,
+    void* tickets, void* d_b_a, void* d_b_i, void* d_lam, int dtype, int B,
+    int S, int W, long long sb, long long ss, void* stream) {
+  const BwdArgs a{za, zi, y, static_cast<const float*>(b_a),
+                  static_cast<const float*>(b_i),
+                  static_cast<const float*>(lam),
+                  static_cast<const float*>(h0),
+                  static_cast<const float*>(h),
+                  static_cast<const float*>(dh), dza, dzi, dy,
+                  static_cast<float*>(part),
+                  static_cast<unsigned int*>(tickets),
+                  static_cast<float*>(d_b_a), static_cast<float*>(d_b_i),
+                  static_cast<float*>(d_lam), B, S, W, sb, ss};
+  if (dtype == repro::kFloat32) return launch_bwd<float>(a, stream);
+  if (dtype == repro::kBFloat16) return launch_bwd<__nv_bfloat16>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -233,23 +233,6 @@ struct Raw<T, 1> {
   }
 };
 
-// Whether this CTA is the last of `n` to reach `counter`.  Every thread's
-// writes before the call are made visible to the other CTAs first (the
-// CTA barrier, then thread 0's fence, which is cumulative); the counter
-// wraps to 0 at the n-th arrival.
-__device__ __forceinline__ bool last_to_arrive(unsigned int* counter,
-                                               unsigned int n, bool* flag) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    const bool last = atomicInc(counter, n - 1) == n - 1;
-    if (last) __threadfence();
-    *flag = last;
-  }
-  __syncthreads();
-  return *flag;
-}
-
 // Columns [j, j + W) of rows [r0, r0 + n) of `part` (row length D, W = 4:
 // 16-byte aligned rows), each added in row order, compensated, into out.
 // Eight rows' loads are in flight before their adds.
@@ -445,9 +428,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int groups = (ctas + group - 1) / group;
   const int g = blockIdx.x / group, g0 = g * group;
   const int gn = min(group, ctas - g0);
-  if (!last_to_arrive(tickets + g, gn, &last)) return;
+  if (!repro::last_to_arrive(tickets + g, gn, &last)) return;
   sum_rows<T>(part, g0, gn, D, ctas + g, dscale, false);
-  if (!last_to_arrive(tickets + groups, groups, &last)) return;
+  if (!repro::last_to_arrive(tickets + groups, groups, &last)) return;
   sum_rows<T>(part, ctas, groups, D, 0, dscale, true);
 }
 

@@ -62,6 +62,10 @@
 // chunked prefill at S 64 moves ~100 MB (state, r/k/v, logw, y) against
 // ~1.5 GFLOP of fp32 work, which the tensor cores take at three TF32
 // products each.
+//
+// The training backward of both forms (`wkv6_bwd_launch`, a kernel of its
+// own: the Pallas kernel has no backward) is described at its kernel
+// below.
 #include <cstdint>
 
 #include "common.cuh"
@@ -568,6 +572,316 @@ cudaError_t dispatch_n(const void* r, const void* k, const void* v,
   }
 }
 
+
+// --- the backward kernel -----------------------------------------------------
+//
+// Gradients of y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T) and
+// S_t = diag(w_t) S_{t-1} + k_t v_t^T (w = exp(logw)) given dy, from the
+// initial state S_0 (a constant).  G_t, the gradient reaching S_t, walks
+// backward from G_{S-1} = 0: G_{t-1} = diag(w_t) G_t + r_t dy_t^T.  With
+// vdy_t = v_t . dy_t and ruk_t = r_t . (u k_t):
+//   dr_t = S_{t-1} dy_t + u k_t vdy_t          (the first term: dr^s_t)
+//   dk_t = G_t v_t + u r_t vdy_t               (the first term: dk^s_t)
+//   dv_t = G_t^T k_t + ruk_t dy_t
+//   du   = sum over b, t of r_t k_t vdy_t
+//   dlogw_t = w_t rowsum(G_t o S_{t-1})
+//           = sum_{i > t} r_i dr^s_i - sum_{j >= t} k_j dk^s_j,
+// the last form because each term of both sums is a pair (j < i) of the
+// recurrence, r_i k_j (v_j . dy_i) prod_{j<l<i} w_l (j = -1: the initial
+// state's term), and logw_t moves exactly the pairs with j < t < i; the
+// pairs with j >= t appear in both sums and cancel.  So no pass needs S_{t-1}
+// and G_t at the same t, which run in opposite directions.  The two suffix
+// sums are carried in fp64, so that their difference keeps fp32's precision
+// when each is much larger than it (slow decays over long sequences).
+//
+// A CTA owns one (b, h), a thread a row n of the state (the RWKV-6
+// authors' layout for their CUDA backward, re-derived here; at N 16 two
+// lanes a row, so that a CTA is a whole warp), and walks the sequence
+// twice:
+//  A. forward: thread n holds S[n][:] and computes dr_t[n] (and parks
+//     r_t dr^s_t in dlogw's place); du's per-(b, h) part in fp64;
+//  B. backward: thread n holds G[n][:] (for dk and the row sums) and
+//     G[:][n] (the column n, for dv), both updated each step; dk, dv and
+//     dlogw are stored.
+// Every thread of a warp reads the same words of the step's vectors (v and
+// dy, or k, w and r), so each 16-byte shared load is one broadcast: the
+// state's N^2 values a step cost N / 4 loads a vector a thread.  Steps
+// are staged kBwdSteps at a time into one of two shared buffers (fp32,
+// w = exp(logw), then vdy and ruk by warp sums) from registers that
+// loaded them while the previous kBwdSteps computed; outputs go to device
+// memory as they are made (a row of N a step, coalesced).  du, a sum over
+// B and S, is taken in the same launch without atomic sums: each CTA
+// writes its (b, h) part, and the last of a head's B CTAs to finish (a
+// ticket, `last_to_arrive`) adds the parts in b order, in fp64.  The same
+// inputs give the same bits.
+//
+// Bound on the H100: at rwkv6-3b's training shape (B 8, S 512, 40 x 64)
+// the bytes are ~257 MB (r, k, v and dr, dk, dv in bf16; logw, dy and
+// dlogw in fp32; the initial state), 0.077 ms at 3.35 TB/s.  The same
+// gradients in chunked form run their products on tensor cores in 3xTF32,
+// ~0.041 ms at the TF32 peak, so the bytes bound it.  This kernel's 12 N^2
+// fp32 operations a step and head (dr, the state's update, dk, dv and G's
+// two updates) alone take 0.120 ms at fp32's peak, and the two serial
+// walks of 512 steps on 320 CTAs of 64 threads set the pace (PERF.md).
+
+constexpr int kBwdSteps = 8;    // steps a shared buffer holds
+
+template <int N>
+struct BwdGeo {
+  static constexpr int T = N < 32 ? 32 : N;   // threads a CTA
+  static constexpr int P = T / N;             // lanes a row
+  static constexpr int M = N / P;             // state columns a lane
+  static constexpr int Q = kBwdSteps / P;     // steps a thread stages
+  static_assert(M % 4 == 0 && kBwdSteps % P == 0, "16-byte slices");
+};
+
+// The sum of x over the P consecutive lanes of a row, the same bits on
+// each (a butterfly: every lane adds the same pairs).
+template <int P>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(repro::kFullMask, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The staged arrays of a step, by index.
+enum { kR, kK, kV, kW, kDy, kParked, kArrays };
+
+template <typename T, int N>
+__global__ void __launch_bounds__(BwdGeo<N>::T)
+    wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ logw,
+                    const float* __restrict__ u,
+                    const float* __restrict__ state0,
+                    const float* __restrict__ dy, T* __restrict__ dr,
+                    T* __restrict__ dk, T* __restrict__ dv, float* dlogw,
+                    float* __restrict__ du, float* __restrict__ part,
+                    unsigned int* __restrict__ tickets, int B, int S, int H,
+                    long long sb, long long ss, long long sh) {
+  using G = BwdGeo<N>;
+  constexpr int P = G::P, M = G::M, Q = G::Q, L = kBwdSteps;
+  constexpr int kWarps = G::T / 32;
+  __shared__ __align__(16) float sbuf[2][kArrays][L][N];
+  __shared__ float sVdy[2][L], sRuk[2][L], sU[N];
+  __shared__ bool last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = tid / P, c0 = (tid % P) * M;
+  const bool lead = tid % P == 0;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  // Row (b, t, h, :) of the contiguous tensors (dy and the outputs).
+  auto row = [&](int t) {
+    return ((static_cast<long long>(b) * S + t) * H + h) * N;
+  };
+  if (tid < N) sU[tid] = u[h * N + tid];
+  const float un = u[h * N + n];
+
+  // Staging: thread tid loads column tid % N of steps tid / N + P q.
+  const int sc = tid % N, si = tid / N;
+  T raw[3][Q];
+  float fp[3][Q];     // logw, dy, the parked terms
+  auto fetch = [&](int t0, int lc, bool parked) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int i = si + P * q;
+      if (i >= lc) continue;
+      const long long off = base + (t0 + i) * ss + sc;
+      raw[0][q] = r[off];
+      raw[1][q] = k[off];
+      raw[2][q] = v[off];
+      fp[0][q] = logw[off];
+      fp[1][q] = dy[row(t0 + i) + sc];
+      if (parked) fp[2][q] = dlogw[row(t0 + i) + sc];
+    }
+  };
+  // The fetched steps into buffer `buf`, then (behind a barrier) their
+  // vdy and ruk.  Ends behind a barrier.
+  auto put = [&](int buf, int lc, bool parked) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int i = si + P * q;
+      if (i >= lc) continue;
+      sbuf[buf][kR][i][sc] = repro::to_f(raw[0][q]);
+      sbuf[buf][kK][i][sc] = repro::to_f(raw[1][q]);
+      sbuf[buf][kV][i][sc] = repro::to_f(raw[2][q]);
+      sbuf[buf][kW][i][sc] = expf(fp[0][q]);
+      sbuf[buf][kDy][i][sc] = fp[1][q];
+      if (parked) sbuf[buf][kParked][i][sc] = fp[2][q];
+    }
+    __syncthreads();
+    for (int i = warp; i < lc; i += kWarps) {
+      float x = 0.f, z = 0.f;
+      for (int c = lane; c < N; c += 32) {
+        x += sbuf[buf][kV][i][c] * sbuf[buf][kDy][i][c];
+        z += sbuf[buf][kR][i][c] * (sU[c] * sbuf[buf][kK][i][c]);
+      }
+      x = repro::warp_sum(x);
+      z = repro::warp_sum(z);
+      if (lane == 0) sVdy[buf][i] = x, sRuk[buf][i] = z;
+    }
+    __syncthreads();
+  };
+  const int chunks = (S + L - 1) / L;
+
+  // A. Forward: the state's row n, columns [c0, c0 + M).
+  float st[M];
+  const float* s0 = state0 + static_cast<long long>(bh) * N * N + n * N + c0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) st[j] = s0[j];
+  double du_part = 0.0;
+  fetch(0, min(L, S), false);
+  put(0, min(L, S), false);
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = c * L, lc = min(L, S - t0), buf = c & 1;
+    if (c + 1 < chunks) fetch(t0 + L, min(L, S - t0 - L), false);
+    for (int i = 0; i < lc; ++i) {
+      const float* dyv = sbuf[buf][kDy][i] + c0;
+      const float* vv = sbuf[buf][kV][i] + c0;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+      for (int j = 0; j < M; j += 4) {
+        const float4 d = lds4(dyv + j);
+        a0 += st[j] * d.x, a1 += st[j + 1] * d.y;
+        a2 += st[j + 2] * d.z, a3 += st[j + 3] * d.w;
+      }
+      const float drs = row_sum<P>((a0 + a1) + (a2 + a3));
+      const float rr = sbuf[buf][kR][i][n], kk = sbuf[buf][kK][i][n];
+      const float ww = sbuf[buf][kW][i][n], vdy = sVdy[buf][i];
+      if (lead) {
+        const long long o = row(t0 + i) + n;
+        dr[o] = repro::from_f<T>(drs + un * kk * vdy);
+        dlogw[o] = rr * drs;
+      }
+      du_part += static_cast<double>(rr * kk * vdy);
+#pragma unroll
+      for (int j = 0; j < M; j += 4) {
+        const float4 x = lds4(vv + j);
+        st[j] = ww * st[j] + kk * x.x;
+        st[j + 1] = ww * st[j + 1] + kk * x.y;
+        st[j + 2] = ww * st[j + 2] + kk * x.z;
+        st[j + 3] = ww * st[j + 3] + kk * x.w;
+      }
+    }
+    if (c + 1 < chunks) put(buf ^ 1, min(L, S - t0 - L), false);
+  }
+
+  // du: this (b, h)'s part, then the head's last CTA adds the B parts.
+  if (lead) part[static_cast<long long>(bh) * N + n] =
+      static_cast<float>(du_part);
+  if (repro::last_to_arrive(tickets + h, B, &last) && tid < N) {
+    double sum = 0.0;
+    for (int bb = 0; bb < B; ++bb)
+      sum += part[(static_cast<long long>(bb) * H + h) * N + tid];
+    du[h * N + tid] = static_cast<float>(sum);
+  }
+
+  // B. Backward: G's row n and column n, columns / rows [c0, c0 + M).
+  // (last_to_arrive ended behind a barrier: the parked terms are visible.)
+  float gr[M], gc[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) gr[j] = gc[j] = 0.f;
+  double suf_r = 0.0, suf_k = 0.0;
+  {
+    const int t0 = (chunks - 1) * L;
+    fetch(t0, S - t0, true);
+    put((chunks - 1) & 1, S - t0, true);
+  }
+  for (int c = chunks - 1; c >= 0; --c) {
+    const int t0 = c * L, lc = min(L, S - t0), buf = c & 1;
+    if (c > 0) fetch(t0 - L, L, true);
+    for (int i = lc - 1; i >= 0; --i) {
+      const float* vv = sbuf[buf][kV][i] + c0;
+      const float* kv = sbuf[buf][kK][i] + c0;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
+#pragma unroll
+      for (int j = 0; j < M; j += 4) {
+        const float4 x = lds4(vv + j), z = lds4(kv + j);
+        a0 += gr[j] * x.x, a1 += gr[j + 1] * x.y;
+        a2 += gr[j + 2] * x.z, a3 += gr[j + 3] * x.w;
+        b0 += gc[j] * z.x, b1 += gc[j + 1] * z.y;
+        b2 += gc[j + 2] * z.z, b3 += gc[j + 3] * z.w;
+      }
+      const float dks = row_sum<P>((a0 + a1) + (a2 + a3));
+      const float dvs = row_sum<P>((b0 + b1) + (b2 + b3));
+      const float rr = sbuf[buf][kR][i][n], kk = sbuf[buf][kK][i][n];
+      const float ww = sbuf[buf][kW][i][n], dyn = sbuf[buf][kDy][i][n];
+      suf_k += static_cast<double>(kk * dks);
+      const double dlw = suf_r - suf_k;
+      suf_r += static_cast<double>(sbuf[buf][kParked][i][n]);
+      if (lead) {
+        const long long o = row(t0 + i) + n;
+        dk[o] = repro::from_f<T>(dks + un * rr * sVdy[buf][i]);
+        dv[o] = repro::from_f<T>(dvs + sRuk[buf][i] * dyn);
+        dlogw[o] = static_cast<float>(dlw);
+      }
+      const float* dyv = sbuf[buf][kDy][i] + c0;
+      const float* wv = sbuf[buf][kW][i] + c0;
+      const float* rv = sbuf[buf][kR][i] + c0;
+#pragma unroll
+      for (int j = 0; j < M; j += 4) {
+        const float4 d = lds4(dyv + j), w4 = lds4(wv + j),
+                     r4 = lds4(rv + j);
+        gr[j] = ww * gr[j] + rr * d.x;
+        gr[j + 1] = ww * gr[j + 1] + rr * d.y;
+        gr[j + 2] = ww * gr[j + 2] + rr * d.z;
+        gr[j + 3] = ww * gr[j + 3] + rr * d.w;
+        gc[j] = w4.x * gc[j] + r4.x * dyn;
+        gc[j + 1] = w4.y * gc[j + 1] + r4.y * dyn;
+        gc[j + 2] = w4.z * gc[j + 2] + r4.z * dyn;
+        gc[j + 3] = w4.w * gc[j + 3] + r4.w * dyn;
+      }
+    }
+    if (c > 0) put(buf ^ 1, L, true);
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_bwd(const void* r, const void* k, const void* v,
+                       const float* logw, const float* u, const float* state0,
+                       const float* dy, void* dr, void* dk, void* dv,
+                       float* dlogw, float* du, float* part,
+                       unsigned int* tickets, int B, int S, int H,
+                       long long sb, long long ss, long long sh,
+                       cudaStream_t stream) {
+  wkv6_bwd_kernel<T, N><<<B * H, BwdGeo<N>::T, 0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), logw, u, state0, dy, static_cast<T*>(dr),
+      static_cast<T*>(dk), static_cast<T*>(dv), dlogw, du, part, tickets, B,
+      S, H, sb, ss, sh);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* r, const void* k, const void* v,
+                         const float* logw, const float* u,
+                         const float* state0, const float* dy, void* dr,
+                         void* dk, void* dv, float* dlogw, float* du,
+                         float* part, unsigned int* tickets, int B, int S,
+                         int H, int N, long long sb, long long ss,
+                         long long sh, cudaStream_t stream) {
+#define REPRO_WKV6_BWD(NN)                                                   \
+  case NN:                                                                   \
+    return launch_bwd<T, NN>(r, k, v, logw, u, state0, dy, dr, dk, dv,       \
+                             dlogw, du, part, tickets, B, S, H, sb, ss, sh,  \
+                             stream);
+  switch (N) {
+    REPRO_WKV6_BWD(16)
+    REPRO_WKV6_BWD(32)
+    REPRO_WKV6_BWD(64)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_WKV6_BWD
+}
+
 }  // namespace
 
 // async: stage the chunk kernel's inputs with 16-byte cp.async copies (they
@@ -592,5 +906,39 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
   if (dtype == repro::kBFloat16)
     return static_cast<int>(dispatch_n<__nv_bfloat16>(
         r, k, v, lw, uf, sf, yf, B, S, H, N, C, sb, ss, sh, async != 0, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of `wkv6_launch`'s chunked or step form (the same function):
+// r, k, v and logw as there (one set of strides), u [H, N] and the initial
+// state state0 [B, H, N, N] fp32, dy fp32 [B, S, H, N] contiguous.  Writes
+// dr, dk, dv ([B, S, H, N] contiguous, r's type), dlogw (fp32, the same
+// shape) and du (fp32 [H, N]); `part` holds B x H x N fp32 partials and
+// `tickets` H zeroed counters (zero again after the launch).
+extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
+                               const void* logw, const void* u,
+                               const void* state0, const void* dy, void* dr,
+                               void* dk, void* dv, void* dlogw, void* du,
+                               void* part, void* tickets, int dtype, int B,
+                               int S, int H, int N, long long sb,
+                               long long ss, long long sh, void* stream) {
+  if (B < 1 || S < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* lw = static_cast<const float*>(logw);
+  const auto* uf = static_cast<const float*>(u);
+  const auto* s0 = static_cast<const float*>(state0);
+  const auto* dyf = static_cast<const float*>(dy);
+  auto* dlw = static_cast<float*>(dlogw);
+  auto* duf = static_cast<float*>(du);
+  auto* pf = static_cast<float*>(part);
+  auto* tk = static_cast<unsigned int*>(tickets);
+  if (dtype == repro::kFloat32)
+    return static_cast<int>(dispatch_bwd<float>(
+        r, k, v, lw, uf, s0, dyf, dr, dk, dv, dlw, duf, pf, tk, B, S, H, N,
+        sb, ss, sh, st));
+  if (dtype == repro::kBFloat16)
+    return static_cast<int>(dispatch_bwd<__nv_bfloat16>(
+        r, k, v, lw, uf, s0, dyf, dr, dk, dv, dlw, duf, pf, tk, B, S, H, N,
+        sb, ss, sh, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

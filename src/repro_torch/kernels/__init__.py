@@ -32,10 +32,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def backward_launch_counts() -> Dict[str, int]:
-    """The training backward's launch counters: RMSNorm's backward (one
-    launch a call), the grouped GEMM's dx and dw products and the
-    transposed copies the fp32 ones run on."""
+    """The training backward's launch counters: RMSNorm's backward, WKV6's
+    and the gated RG-LRU's (one launch a call each), the grouped GEMM's dx
+    and dw products and the transposed copies the fp32 ones run on."""
     return {"rmsnorm_bwd": rms.bwd_launches,
             "moe_gemm_dx": mg.dx_launches,
             "moe_gemm_dw": mg.dw_launches,
-            "moe_gemm_transpose": mg.transpose_launches}
+            "moe_gemm_transpose": mg.transpose_launches,
+            "wkv6_bwd": wk.bwd_launches,
+            "rglru_bwd": rg.bwd_launches}

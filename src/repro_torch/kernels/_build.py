@@ -51,8 +51,10 @@ _ATTN = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 #: `moe_gemm_dx_launch` and `moe_gemm_dw_launch` (the bf16 backward's
 #: products, operands in place) and `moe_transpose_launch` (the fp32
 #: backward's transposed operands), rglru `rglru_gated_launch` (the gate
-#: arithmetic folded in), rmsnorm `rmsnorm_bwd_launch` (the backward, its
-#: column sum in the same launch).
+#: arithmetic folded in) and `rglru_gated_bwd_launch` (its backward),
+#: rmsnorm `rmsnorm_bwd_launch` (the backward, its column sum in the same
+#: launch), wkv6 `wkv6_bwd_launch` (the backward, du's sum over the batch
+#: in the same launch).
 SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
@@ -67,11 +69,13 @@ SIGNATURES = {
     "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
     "rglru_gated_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _I, _P],
+    "rglru_gated_bwd_launch": [_P] * 17 + [_I, _I, _I, _I, _L, _L, _P],
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _F, _P],
     "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
                            _I, _I, _I, _I, _I, _I, _F, _P],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
                     _L, _L, _I, _P],
+    "wkv6_bwd_launch": [_P] * 14 + [_I, _I, _I, _I, _I, _L, _L, _L, _P],
 }
 
 _LOADED: Dict[Tuple[str, str], object] = {}
@@ -160,6 +164,30 @@ def dtype_code(t: torch.Tensor) -> int:
                         ) from None
 
 
+def records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on `tensors` (a wrapper then goes
+    through its kernel's autograd Function)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def stream() -> int:
     """PyTorch's current CUDA stream as a raw handle."""
     return torch.cuda.current_stream().cuda_stream
+
+
+#: Zeroed ticket counters of the kernels that finish a cross-CTA sum in
+#: the same launch (`last_to_arrive`, common.cuh), by (device, stream):
+#: each launch leaves the counters it used at zero for the next launch on
+#: its stream, and launches on one stream run in order.
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least `n` zeroed int32 ticket counters for a launch on the
+    current stream of `device`."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t

@@ -17,7 +17,16 @@ shapes.  A CPU tensor takes the plain version in `ref.py` (the gates by
 the kernel or raises.  `launches` counts kernel launches of both entries.
 
 Both write the final state into `state` in place and return it, so a
-model's stacked `lru_h` is updated without a copy."""
+model's stacked `lru_h` is updated without a copy.
+
+`rglru_gated` is differentiable in za, zi, y, b_a, b_i and lru_lambda; the
+initial state is a constant of the backward (it must not require grad)
+and the final state is not differentiated.  Where autograd records, a
+CUDA call goes through `_RGLRUGatedFn`, which keeps a copy of the initial
+state and whose backward is the backward kernel (`rglru_gated_backward`:
+`rglru_gated_bwd_launch` in the same source, one launch a call, counted
+in `bwd_launches`; the plain version `rglru_gated_bwd_ref`).  Serving's
+tensors require no grad and launch the forward alone, as before."""
 
 from __future__ import annotations
 
@@ -26,12 +35,16 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rglru.ref import (rglru_assoc_ref, rglru_gates_ref,
-                                           rglru_scan_ref, rglru_step_ref)
+from repro_torch.kernels.rglru.ref import (rglru_assoc_ref,
+                                           rglru_gated_bwd_ref,
+                                           rglru_gates_ref, rglru_scan_ref,
+                                           rglru_step_ref)
 
 #: Kernel launches made through `rglru` and `rglru_gated` (the CPU path
 #: does not count).
 launches = 0
+#: Kernel launches made through `rglru_gated_backward` (one a call).
+bwd_launches = 0
 
 #: Consecutive channels a thread of the kernel owns.
 LANES = 4
@@ -65,11 +78,14 @@ def launch_plan(b: int, s: int, w: int, strides: Sequence[int],
 
 def _on_cpu(log_a: torch.Tensor, b: torch.Tensor, state: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    # The plain versions save the state they read for autograd, and the
+    # state is overwritten below: where autograd records, they read a copy.
+    h0 = state.clone() if _build.records(log_a, b) else state
     if log_a.shape[1] == 1:
-        h, last = rglru_step_ref(log_a, b, state)
+        h, last = rglru_step_ref(log_a, b, h0)
     else:
-        h, last = rglru_assoc_ref(log_a, b, state)
-    state.copy_(last)
+        h, last = rglru_assoc_ref(log_a, b, h0)
+    state.copy_(last.detach())
     return h, state
 
 
@@ -114,13 +130,18 @@ def rglru(log_a: torch.Tensor, b: torch.Tensor, state: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """log_a, b: fp32 [B, S, W]; state: fp32 [B, W], the initial state.
     Returns (h fp32 [B, S, W] contiguous, state), with `state` overwritten
-    by h[:, -1].
+    by h[:, -1].  Not differentiable on the card (the model runs
+    `rglru_gated`, which is).
 
     On the card: log_a and b share one set of strides with a unit last
     stride (they are read in place); state is contiguous."""
     global launches
     if log_a.device.type == "cpu":
         return _on_cpu(log_a, b, state)
+    if _build.records(log_a, b):
+        raise NotImplementedError(
+            "rglru: the plain front end has no backward kernel (a launch "
+            "would cut the autograd graph); differentiate rglru_gated")
     bsz, s, w, plan = _check("rglru", (log_a, b), (), state,
                              (torch.float32,))
     strides = log_a.stride()
@@ -140,31 +161,112 @@ def rglru_gated(za: torch.Tensor, zi: torch.Tensor, y: torch.Tensor,
     za = y @ w_a, zi = y @ w_i and y: [B, S, W], one type (fp32 or bf16 on
     the card); b_a, b_i, lru_lambda: fp32 [W]; state: fp32 [B, W], the
     initial state.  Returns (h fp32 [B, S, W] contiguous, state), with
-    `state` overwritten by h[:, -1]: h_t = a_t h_{t-1} + b_t with
+    `state` overwritten by h[:, -1] (which carries no gradient):
+    h_t = a_t h_{t-1} + b_t with
     log_a = -8 softplus(lambda) sigmoid(za + b_a) and
     b = sqrt(max(1 - a^2, 1e-9)) (sigmoid(zi + b_i) y).
 
     On the card: za, zi and y share one set of strides with a unit last
     stride (they are read in place); the rest is contiguous."""
-    global launches
+    inputs = (za, zi, y, b_a, b_i, lru_lambda)
+    recording = _build.records(*inputs)
+    if recording and state.requires_grad:
+        raise ValueError("rglru_gated: the initial state is a constant of "
+                         "the backward and must not require grad")
     if za.device.type == "cpu":
-        log_a, b = rglru_gates_ref(za, zi, y, b_a, b_i, lru_lambda)
-        return _on_cpu(log_a, b, state)
-    bsz, s, w, plan = _check("rglru_gated", (za, zi, y),
-                             (b_a, b_i, lru_lambda), state,
-                             (torch.float32, torch.bfloat16))
+        return _on_cpu(*rglru_gates_ref(*inputs), state)
+    plan = _check_gated(*inputs, state)[3]
+    if recording:
+        return _RGLRUGatedFn.apply(*inputs, state, plan.vec)
+    return _gated_forward(*inputs, state, plan.vec), state
+
+
+def _check_gated(za, zi, y, b_a, b_i, lru_lambda, state):
+    return _check("rglru_gated", (za, zi, y), (b_a, b_i, lru_lambda),
+                  state, (torch.float32, torch.bfloat16))
+
+
+def _gated_forward(za, zi, y, b_a, b_i, lru_lambda, state, vec
+                   ) -> torch.Tensor:
+    """The gated forward kernel on checked CUDA tensors: h, with `state`
+    overwritten by h[:, -1]."""
+    global launches
+    bsz, s, w = za.shape
     strides = za.stride()
     h = torch.empty((bsz, s, w), dtype=torch.float32, device=za.device)
     err = _build.load("rglru", "rglru_gated_launch")(
         za.data_ptr(), zi.data_ptr(), y.data_ptr(), b_a.data_ptr(),
         b_i.data_ptr(), lru_lambda.data_ptr(), state.data_ptr(),
         h.data_ptr(), _build.dtype_code(za), bsz, s, w, strides[0],
-        strides[1], int(plan.vec), _build.stream())
+        strides[1], int(vec), _build.stream())
     _build.check("rglru_gated", err)
     launches += 1
-    return h, state
+    return h
+
+
+class _RGLRUGatedFn(torch.autograd.Function):
+    """The gated CUDA forward kernel, differentiated by the backward
+    kernel from a copy of the initial state taken before the forward
+    overwrites it, and from the forward's h (h_{t-1} of every step past
+    the first)."""
+
+    @staticmethod
+    def forward(ctx, za, zi, y, b_a, b_i, lru_lambda, state, vec):
+        h0 = state.clone()
+        h = _gated_forward(za, zi, y, b_a, b_i, lru_lambda, state, vec)
+        ctx.save_for_backward(za, zi, y, b_a, b_i, lru_lambda, h0, h)
+        ctx.mark_dirty(state)
+        ctx.mark_non_differentiable(state)
+        return h, state
+
+    @staticmethod
+    def backward(ctx, dh, _dstate):
+        *inputs, h0, h = ctx.saved_tensors
+        return (*rglru_gated_backward(dh, *inputs, h0, h), None, None)
+
+
+def rglru_gated_backward(dh: torch.Tensor, za: torch.Tensor,
+                         zi: torch.Tensor, y: torch.Tensor,
+                         b_a: torch.Tensor, b_i: torch.Tensor,
+                         lru_lambda: torch.Tensor, h0: torch.Tensor,
+                         h: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gradients of `rglru_gated(za, zi, y, b_a, b_i, lru_lambda, h0)`'s h
+    given dh (fp32 [B, S, W]), from the initial state h0 (left as it is)
+    and the forward's h: (dza, dzi, dy in the inputs' type, d b_a, d b_i,
+    d lru_lambda fp32 [W]).  A CPU tensor takes `rglru_gated_bwd_ref`
+    (which needs no h); a CUDA tensor launches the backward kernel once
+    (a thread a channel of a batch row, B x ceil(W / CTA_THREADS) CTAs;
+    the per-channel sums over B and S in a fixed order: the same bits
+    from run to run) or raises."""
+    global bwd_launches
+    inputs = (za, zi, y, b_a, b_i, lru_lambda)
+    if za.device.type == "cpu":
+        return rglru_gated_bwd_ref(dh, *inputs, h0)
+    dh = dh.contiguous()
+    bsz, s, w, _ = _check_gated(*inputs, h0)
+    if any(t.dtype != torch.float32 or tuple(t.shape) != (bsz, s, w)
+           or not t.is_contiguous() or t.device != za.device
+           for t in (h, dh)):
+        raise ValueError("rglru_gated backward: h and dh must be contiguous "
+                         f"fp32 [{bsz}, {s}, {w}] on {za.device}, got "
+                         f"{h.dtype} {tuple(h.shape)} on {h.device} and "
+                         f"{dh.dtype} {tuple(dh.shape)} on {dh.device}")
+    grads = [torch.empty((bsz, s, w), dtype=za.dtype, device=za.device)
+             for _ in range(3)]
+    sums = [torch.empty((w,), dtype=torch.float32, device=za.device)
+            for _ in range(3)]
+    part = torch.empty((3, bsz, w), dtype=torch.float32, device=za.device)
+    strides = za.stride()
+    err = _build.load("rglru", "rglru_gated_bwd_launch")(
+        *(t.data_ptr() for t in (*inputs, h0, h, dh, *grads, part)),
+        _build.tickets(za.device, -(-w // CTA_THREADS)).data_ptr(),
+        *(t.data_ptr() for t in sums), _build.dtype_code(za), bsz, s, w,
+        strides[0], strides[1], _build.stream())
+    _build.check("rglru_gated backward", err)
+    bwd_launches += 1
+    return (*grads, *sums)
 
 
 __all__ = ["LANES", "ScanPlan", "launch_plan", "rglru", "rglru_assoc_ref",
-           "rglru_gated", "rglru_gates_ref", "rglru_scan_ref",
-           "rglru_step_ref"]
+           "rglru_gated", "rglru_gated_backward", "rglru_gated_bwd_ref",
+           "rglru_gates_ref", "rglru_scan_ref", "rglru_step_ref"]

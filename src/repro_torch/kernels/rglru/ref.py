@@ -17,7 +17,9 @@ All three take log_a and b fp32 [B, S, W] and h0 fp32 [B, W], and return
 (h fp32 [B, S, W], h_last fp32 [B, W]), leaving h0 as it was.
 
 `rglru_gates_ref` makes that log_a and b from the gate pre-activations,
-as the reference model's `_rglru_gates` (`repro.models.rglru`) does.
+as the reference model's `_rglru_gates` (`repro.models.rglru`) does, and
+`rglru_gated_bwd_ref` is the plain backward of the two together: autograd
+of `rglru_gates_ref` followed by the associative scan (the step at S 1).
 """
 
 from __future__ import annotations
@@ -78,3 +80,19 @@ def rglru_step_ref(log_a: Tensor, b: Tensor, h0: Tensor
     """One token: log_a, b [B, 1, W]."""
     h = torch.exp(log_a[:, 0]) * h0 + b[:, 0]
     return h[:, None], h
+
+
+def rglru_gated_bwd_ref(dh: Tensor, za: Tensor, zi: Tensor, y: Tensor,
+                        b_a: Tensor, b_i: Tensor, lru_lambda: Tensor,
+                        h0: Tensor) -> Tuple[Tensor, ...]:
+    """Gradients of h = the gated recurrence from h0 (`rglru_gates_ref`,
+    then `rglru_step_ref` at S 1, else `rglru_assoc_ref`) given dh (fp32,
+    [B, S, W]), h0 a constant and the final state's gradient not taken:
+    (dza, dzi, dy in their input types, d b_a, d b_i, d lru_lambda fp32
+    [W]), by autograd on detached copies of the inputs."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in (za, zi, y, b_a, b_i, lru_lambda)]
+    scan = rglru_step_ref if za.shape[1] == 1 else rglru_assoc_ref
+    with torch.enable_grad():
+        h, _ = scan(*rglru_gates_ref(*leaves), h0.detach().clone())
+        return torch.autograd.grad(h, leaves, dh)

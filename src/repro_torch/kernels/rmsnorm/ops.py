@@ -18,7 +18,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import math
-from typing import Dict, Tuple
 
 import torch
 
@@ -215,20 +214,6 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return _forward(x, scale, eps)
 
 
-#: Zeroed ticket counters of the backward's column sum, by (device,
-#: stream): each launch leaves them zero for the next on its stream.
-_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _TICKETS[key] = t
-    return t
-
-
 def rmsnorm_backward(dy: torch.Tensor, x: torch.Tensor,
                      scale: torch.Tensor, *, eps: float = 1e-6):
     """Gradients of `rmsnorm(x, scale, eps=eps)` given dy (x's shape, any
@@ -265,8 +250,9 @@ def rmsnorm_backward(dy: torch.Tensor, x: torch.Tensor,
     err = _build.load("rmsnorm", "rmsnorm_bwd_launch")(
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), part.data_ptr(),
-        _tickets(x.device, plan.groups + 1).data_ptr(), _build.dtype_code(x),
-        rows, d, x2.stride(0), dy2.stride(0), plan.vec, plan.lanes,
+        _build.tickets(x.device, plan.groups + 1).data_ptr(),
+        _build.dtype_code(x), rows, d, x2.stride(0), dy2.stride(0), plan.vec,
+        plan.lanes,
         plan.items, plan.threads, plan.ctas, plan.group, float(eps),
         _build.stream())
     _build.check("rmsnorm backward", err)

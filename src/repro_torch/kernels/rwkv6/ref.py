@@ -10,6 +10,8 @@ All three take r/k/v [B, S, H, N] in the compute dtype, logw fp32
 [B, S, H, N], bonus [H, N] and the state fp32 [B, H, N, N] (indexed [key,
 value]); they work in fp32 and return (y fp32 [B, S, H, N], the final
 state), leaving the given state as it was.
+
+`wkv6_bwd_ref` is the plain backward: autograd of `wkv6_chunked_ref`.
 """
 
 from __future__ import annotations
@@ -90,3 +92,17 @@ def wkv6_sequential(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
                                S + uf[None, :, :, None] * kv))
         S = wf[:, t, ..., None] * S + kv
     return torch.stack(ys, dim=1), S
+
+
+def wkv6_bwd_ref(dy: Tensor, r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
+                 bonus: Tensor, state: Tensor, chunk: int
+                 ) -> Tuple[Tensor, ...]:
+    """Gradients of y = `wkv6_chunked_ref(...)[0]` given dy (fp32, y's
+    shape), the initial state a constant (the final state's gradient is
+    not taken): (dr, dk, dv in r's dtype, dlogw fp32, dbonus in bonus's
+    dtype), by autograd on detached copies of the inputs."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in (r, k, v, logw, bonus)]
+    with torch.enable_grad():
+        y, _ = wkv6_chunked_ref(*leaves, state.detach().clone(), chunk)
+        return torch.autograd.grad(y, leaves, dy)

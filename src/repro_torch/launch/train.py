@@ -3,16 +3,18 @@
 End-to-end: config -> params and AdamW state on one device -> data
 pipeline -> train step -> checkpoint manager (+ restart) -> straggler
 watchdog.  It runs on the card unless told otherwise (`device="cpu"`, as
-the tests run it) and trains the transformer family.  The loop has no
-mesh: the reference's sharded launcher (`distributed/*`,
-`launch/mesh.py`) is ROADMAP.md Queue 1 item 9c, and rwkv6's,
-recurrentgemma's and the encoder-decoder's training item 9b.
+the tests run it) and trains the LM families (the transformer, rwkv6,
+recurrentgemma); the encoder-decoder trains through `make_train_step`, as
+in the reference.  The loop has no mesh: the reference's sharded launcher
+(`distributed/*`, `launch/mesh.py`) is ROADMAP.md Queue 1 item 9c.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 8 --global-batch 8 --seq-len 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --smoke --device cpu --steps 20 --ckpt-dir /tmp/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+        --steps 8 --global-batch 8 --seq-len 512 --remat full
 """
 
 from __future__ import annotations
@@ -53,9 +55,8 @@ def run_training(arch: str, *, smoke: bool = True, steps: int = 20,
     bundle = bundle_for(cfg)
     if bundle.family == "encdec":
         raise NotImplementedError(
-            "train.py drives LM-family archs; the encoder-decoder's loss is "
-            "not ported yet (ROADMAP.md, Queue 1 item 9b)")
-    bundle.require_training()
+            "train.py drives LM-family archs; seamless trains through "
+            "examples/train_encdec semantics in tests")
     if model_parallel != 1:
         raise NotImplementedError(
             f"model_parallel={model_parallel}: the port trains on one card; "

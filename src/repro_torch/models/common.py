@@ -63,6 +63,11 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
     return (w * 0.02).to(dtype)
 
 
+#: The remat policies every family's config takes: "none", "dots" (keep
+#: the matrix products' outputs) and "full" (keep a block's input alone).
+REMAT = ("none", "dots", "full")
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -567,6 +572,18 @@ def unembed(params: Params, x: Tensor, tied: bool = True,
     if final_softcap > 0.0:
         logits = final_softcap * torch.tanh(logits / final_softcap)
     return logits
+
+
+def lm_loss(forward: Callable, cfg: Any, params: Dict[str, Any],
+            batch: Dict[str, Tensor]) -> Tensor:
+    """An LM family's `loss_fn` from its `forward(cfg, params, tokens,
+    ...)`: mean next-token cross entropy plus the forward's aux loss, fp32
+    scalar.  `batch`: "tokens" and "labels" [B, S] int, and
+    "prefix_embeddings" [B, P, D] where the family takes them."""
+    extra = ((batch["prefix_embeddings"],) if "prefix_embeddings" in batch
+             else ())
+    logits, aux = forward(cfg, params, batch["tokens"], *extra)
+    return cross_entropy_loss(logits, batch["labels"].long()) + aux
 
 
 def cross_entropy_loss(logits: Tensor, labels: Tensor,

@@ -1,6 +1,6 @@
 """Encoder-decoder transformer of the port (`repro.models.encdec`): the
 SeamlessM4T-large-v2 text/speech backbone (arXiv:2308.11596), for
-inference.
+inference and training.
 
 The modality frontend is a stub, as in the reference: `speech_embeddings`
 (precomputed conformer-frame embeddings, [B, T_frames, D];
@@ -17,6 +17,8 @@ Public API (used by the registry, the engine and the tests):
     params_from_jax(cfg, tree, device)   -> params from JAX's params tree
     encode(cfg, params, speech)          -> memory [B, T, D]
     forward(cfg, params, {"speech_embeddings", "tokens"}) -> (logits, 0)
+    loss_fn(cfg, params, {"speech_embeddings", "tokens", "labels"})
+                                         -> scalar loss
     init_cache(cfg, batch, max_len, device) -> cache
     prefill(cfg, params, {"speech_embeddings", "tokens"}, cache)
                                          -> (BOS logits, cache)
@@ -31,8 +33,10 @@ K/V stacked over the decoder's layers, `[L, B, S, KVH, D]`, and
 cross K/V of the memory's T frames and `memory_len`, a decode step its
 token's self K/V at `pos`.  Stale entries of a reused cache are never
 read: cross attention masks frames past `memory_len`, self attention
-positions past `pos`.  `loss_fn` and `abstract_params` belong to
-training, which is not ported yet (ROADMAP.md, Queue 1 item 9b).
+positions past `pos`.  Training differentiates `forward` through
+autograd (no kernel is on its path); `cfg.remat` takes "none", "dots" and
+"full" and, as in the reference (whose encdec never reads it), recomputes
+nothing.
 """
 
 from __future__ import annotations
@@ -73,9 +77,9 @@ class EncDecConfig:
     remat: str = "none"
 
     def __post_init__(self):
-        if self.remat != "none":
-            raise ValueError(f"the port has no remat={self.remat!r} path "
-                             "(training is not ported); only 'none'")
+        if self.remat not in common.REMAT:
+            raise ValueError(f"remat must be one of {common.REMAT}, got "
+                             f"{self.remat!r}")
 
     def attn_spec(self) -> AttnSpec:
         return AttnSpec(d_model=self.d_model, n_heads=self.n_heads,
@@ -104,9 +108,11 @@ class EncDecConfig:
 
 def init_params(cfg: EncDecConfig, seed: int = 0, device=None) -> Params:
     """Random weights from a torch generator seeded with `seed`, made on
-    `device` (CUDA unless told otherwise)."""
+    `device` (CUDA unless told otherwise; on the meta device, shapes and
+    dtypes alone)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     spec, d, dt = cfg.attn_spec(), cfg.d_model, cfg.dtype
 
     def norm():
@@ -226,6 +232,15 @@ def forward(cfg: EncDecConfig, params: Params, batch_inputs,
     memory = encode(cfg, params, speech)
     logits = decode_train(cfg, params, memory, tokens)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(cfg: EncDecConfig, params: Params, batch: Dict[str, Tensor]
+            ) -> Tensor:
+    """Mean next-token cross entropy of the teacher-forced decoder, fp32
+    scalar.  `batch`: "speech_embeddings" [B, T, D], "tokens" and "labels"
+    [B, S] int."""
+    logits, aux = forward(cfg, params, batch)
+    return common.cross_entropy_loss(logits, batch["labels"].long()) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,9 @@ and tests consume:
 
 `inputs` are tokens [B, S], or for the encdec family
 {"speech_embeddings": [B, T, D], "tokens": [B, S]}, as in the reference.
-Training (`loss_fn`, `abstract_params`) is ported for the transformer
-family; the others raise NotImplementedError: their forward runs kernels
-(WKV6, the RG-LRU) that have no backward yet, or, for the encoder-decoder,
-no loss is ported (ROADMAP.md, Queue 1 item 9b).
+Every family trains (`loss_fn`, `abstract_params`): its kernels carry
+backward kernels of their own (RMSNorm, the grouped GEMM, WKV6, the gated
+RG-LRU); the encoder-decoder launches none.
 """
 
 from __future__ import annotations
@@ -25,10 +24,6 @@ import dataclasses
 from typing import Any
 
 from repro_torch.models import encdec, rglru, rwkv6, transformer
-
-#: The families whose training path is ported.
-TRAINABLE = ("transformer",)
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
@@ -39,22 +34,13 @@ class ModelBundle:
     def init_params(self, seed: int = 0, device=None):
         return self.module.init_params(self.cfg, seed, device)
 
-    def require_training(self):
-        """The family's module where its training path is ported; raises
-        NotImplementedError otherwise."""
-        if self.family not in TRAINABLE:
-            raise NotImplementedError(
-                f"{self.family} ({self.cfg.name}): training is not ported "
-                "yet (ROADMAP.md, Queue 1 item 9b: rwkv6's and "
-                "recurrentgemma's loss_fn and remat with backward kernels "
-                "for wkv6 and rglru, encdec's loss_fn and abstract_params)")
-        return self.module
-
     def abstract_params(self):
-        return self.require_training().abstract_params(self.cfg)
+        """The params tree on the meta device: every leaf's shape and
+        dtype, no memory (the template a checkpoint is restored into)."""
+        return self.module.init_params(self.cfg, 0, "meta")
 
     def loss_fn(self, params, batch):
-        return self.require_training().loss_fn(self.cfg, params, batch)
+        return self.module.loss_fn(self.cfg, params, batch)
 
     def forward(self, params, inputs, **kw):
         return self.module.forward(self.cfg, params, inputs, **kw)

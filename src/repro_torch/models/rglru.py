@@ -1,6 +1,6 @@
 """RecurrentGemma / Griffin (arXiv:2402.19427) of the port:
 `repro.models.rglru`, RG-LRU recurrent blocks interleaved 2:1 with local
-(sliding-window MQA) attention, for inference.
+(sliding-window MQA) attention, for inference and training.
 
 Block pattern: (recurrent, recurrent, attention) repeating; every temporal
 block is followed by a GeGLU MLP block.
@@ -21,11 +21,12 @@ recurrence in one hand-written CUDA kernel on the card, their plain
 versions on the CPU.  The reference runs `jax.lax.associative_scan` and a
 one-token step there, never its Pallas kernel.
 
-Public API (used by serving/ and the tests):
+Public API (used by serving/, launch/ and the tests):
     init_params(cfg, seed, device)          -> params
     params_from_jax(cfg, tree, device)      -> params from JAX's params tree
     cache_from_jax(cfg, tree, device)       -> cache from JAX's cache tree
     forward(cfg, params, tokens)            -> (logits, aux = 0)
+    loss_fn(cfg, params, {"tokens", "labels"}) -> scalar loss
     init_cache(cfg, batch, max_len, device) -> zero state + KV caches
     prefill(cfg, params, tokens, cache)     -> (last logits, cache)
     decode_step(cfg, params, token, cache, pos) -> (logits, cache)
@@ -40,13 +41,19 @@ window) (a ring buffer when L == window), and `prefill` / `decode_step`
 update it in place.  A caller that reuses a cache zeroes the recurrent
 part (`STATE_KEYS`) before the next prompt, as the serving engine does.
 
-Training (`loss_fn`, remat; ROADMAP.md Queue 1 item 9b, with backward
-kernels) and prefix embeddings are not ported.
+Training differentiates `forward` through autograd: `rglru_gated` and the
+RMSNorms carry backward kernels of their own (`kernels/rglru/ops.py`,
+`kernels/rmsnorm/ops.py`).  The training forward starts every recurrent
+block from a zero conv tail and state made inside the block and writes no
+cache.  `cfg.remat` takes "none", "dots" and "full" and, as in the
+reference (whose rglru never reads it), recomputes nothing.  Prefix
+embeddings are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -93,9 +100,9 @@ class RGLRUConfig:
     max_seq_len: int = 1 << 20
 
     def __post_init__(self):
-        if self.remat != "none":
-            raise ValueError(f"the port has no remat={self.remat!r} path "
-                             "(training is not ported); only 'none'")
+        if self.remat not in common.REMAT:
+            raise ValueError(f"remat must be one of {common.REMAT}, got "
+                             f"{self.remat!r}")
         if self.attn_impl not in ("naive", "flash"):
             raise ValueError(f"attn_impl must be 'naive' or 'flash', got "
                              f"{self.attn_impl!r}")
@@ -165,10 +172,12 @@ def _rec_block_init(cfg: RGLRUConfig, gen: torch.Generator, dev) -> Params:
 
 def init_params(cfg: RGLRUConfig, seed: int = 0, device=None) -> Params:
     """Random weights from a torch generator seeded with `seed`, made on
-    `device` (CUDA unless told otherwise), with the reference's shapes,
-    scales and zero-initialised biases and norm scales."""
+    `device` (CUDA unless told otherwise; on the meta device, shapes and
+    dtypes alone), with the reference's shapes, scales and
+    zero-initialised biases and norm scales."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     spec, d, dt = cfg.attn_spec(), cfg.d_model, cfg.dtype
     rec, att = [], []
     for t in cfg.block_types:
@@ -265,11 +274,14 @@ def rglru_scan(bp: Params, y: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _causal_conv(bp: Params, y: Tensor, tail: Tensor) -> Tuple[Tensor, Tensor]:
+def _causal_conv(bp: Params, y: Tensor, tail: Optional[Tensor]
+                 ) -> Tuple[Tensor, Tensor]:
     """Depthwise causal conv1d k=4.  y: [B,S,W]; tail: [B,3,W] carries the
-    previous samples.  The taps are summed in y's dtype in the reference's
-    order.  Returns (out, new tail)."""
+    previous samples (zero when None).  The taps are summed in y's dtype in
+    the reference's order.  Returns (out, new tail)."""
     s = y.shape[1]
+    if tail is None:
+        tail = y.new_zeros((y.shape[0], _CONV_K - 1, y.shape[2]))
     ytail = torch.cat([tail.to(y.dtype), y], dim=1)
     w = bp["conv_w"].to(y.dtype)          # [K, W]
     out = ytail[:, 0:s] * w[_CONV_K - 1]
@@ -279,14 +291,20 @@ def _causal_conv(bp: Params, y: Tensor, tail: Tensor) -> Tuple[Tensor, Tensor]:
     return out, ytail[:, -(_CONV_K - 1):]
 
 
-def _recurrent_block(bp: Params, x: Tensor, conv_tail: Tensor,
-                     lru_h: Tensor) -> Tensor:
+def _recurrent_block(bp: Params, x: Tensor, conv_tail: Optional[Tensor],
+                     lru_h: Optional[Tensor]) -> Tensor:
     """x: [B,S,D] (already normed); conv_tail [B,3,W] and lru_h [B,W] are
-    updated in place.  Returns the block's output."""
+    updated in place.  Both None (the training forward): the block starts
+    from zero states, the state made here, and writes none.  Returns the
+    block's output."""
     ya = x @ bp["w_x"]
     yb = common.ACTS["gelu_tanh"](x @ bp["w_gate"])
     ya, new_tail = _causal_conv(bp, ya, conv_tail)
-    conv_tail.copy_(new_tail)
+    if conv_tail is not None:
+        conv_tail.copy_(new_tail)
+    if lru_h is None:
+        lru_h = torch.zeros((x.shape[0], ya.shape[2]), dtype=torch.float32,
+                            device=x.device)
     h, _ = rglru_scan(bp, ya, lru_h)
     return (h.to(x.dtype) * yb) @ bp["w_out"]
 
@@ -332,8 +350,9 @@ def _run(cfg: RGLRUConfig, params: Params, x: Tensor,
          cache: Optional[Params], pos: Optional[Tensor], mode: str,
          pad_mask: Optional[Tensor] = None,
          pos_offset: Optional[int] = None) -> Tensor:
-    """mode: 'train' (no cache IO; the recurrent state starts from `cache`
-    and is updated in it), 'prefill' (cache writes), 'decode' (one step).
+    """mode: 'train' (`cache` None: the recurrent blocks start from zero
+    states and nothing is written), 'prefill' (cache writes), 'decode' (one
+    step).
     `pad_mask` / `pos_offset` reach only the attention blocks; the
     recurrent blocks fold every input token, pads included, as in the
     reference."""
@@ -343,9 +362,10 @@ def _run(cfg: RGLRUConfig, params: Params, x: Tensor,
         h_in = common.rmsnorm({"scale": params["norms_temporal"]["scale"][li]},
                               x)
         if t == "recurrent":
-            out = _recurrent_block(params["rec_blocks"][ri], h_in,
-                                   cache["conv_tail"][ri],
-                                   cache["lru_h"][ri])
+            tail, state = (None, None) if cache is None else \
+                (cache["conv_tail"][ri], cache["lru_h"][ri])
+            out = _recurrent_block(params["rec_blocks"][ri], h_in, tail,
+                                   state)
             ri += 1
         else:
             ap = params["attn_blocks"][ai]["attn"]
@@ -371,13 +391,17 @@ def _run(cfg: RGLRUConfig, params: Params, x: Tensor,
 
 def forward(cfg: RGLRUConfig, params: Params, tokens: Tensor
             ) -> Tuple[Tensor, Tensor]:
-    """tokens: [B, S] int.  Returns (logits [B, S, V] fp32, 0)."""
+    """tokens: [B, S] int.  Returns (logits [B, S, V] fp32, 0), from zero
+    states.  Differentiable (the training forward: no cache is written)."""
     x = common.embed(params, tokens, scale_by_sqrt_dim=True)
-    cache = init_cache(cfg, x.shape[0], 1, x.device)
-    x = _run(cfg, params, x, cache, None, "train")
+    x = _run(cfg, params, x, None, None, "train")
     x = common.rmsnorm(params["final_norm"], x)
     logits = common.unembed(params, x, cfg.tie_embeddings)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+#: Mean next-token cross entropy (`common.lm_loss`).
+loss_fn = functools.partial(common.lm_loss, forward)
 
 
 def prefill(cfg: RGLRUConfig, params: Params, tokens: Tensor, cache: Params,

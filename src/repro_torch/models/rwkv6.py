@@ -1,5 +1,6 @@
 """RWKV-6 "Finch" (arXiv:2404.05892) of the port: `repro.models.rwkv6`, an
-attention-free LM with data-dependent per-channel decay, for inference.
+attention-free LM with data-dependent per-channel decay, for inference and
+training.
 
 Time mixing (per head h, head dim N):
     S_t   = diag(w_t) . S_{t-1} + k_t v_t^T          (state: N x N)
@@ -10,11 +11,12 @@ every decode step) goes through `kernels/rwkv6/ops.wkv6`: the hand-written
 CUDA kernel on the card, its plain version on the CPU.  The reference runs
 its own pure-JAX `wkv6_chunked` and `wkv6_decode` there.
 
-Public API (used by serving/ and the tests):
+Public API (used by serving/, launch/ and the tests):
     init_params(cfg, seed, device)         -> params
     params_from_jax(cfg, tree, device)     -> params from JAX's params tree
     state_from_jax(cfg, tree, device)      -> state from JAX's state tree
     forward(cfg, params, tokens)           -> (logits, aux = 0)
+    loss_fn(cfg, params, {"tokens", "labels"}) -> scalar loss
     init_cache(cfg, batch, max_len, device) -> zero recurrent state
     prefill(cfg, params, tokens, cache)    -> (last logits, state)
     decode_step(cfg, params, token, cache, pos) -> (logits, state)
@@ -28,17 +30,25 @@ fresh copy (the WKV state of rwkv6-3b at batch 28 is 0.59 GB).  A caller
 that reuses a state buffer zeroes it before the next prompt, as the
 serving engine does.
 
-Training (`loss_fn`, remat; ROADMAP.md Queue 1 item 9b, with backward
-kernels) and prefix embeddings are not ported.
+Training differentiates `forward` through autograd: `wkv6` carries a
+backward kernel of its own (`kernels/rwkv6/ops.py`).  The training forward
+starts every layer from a zero state made inside the layer and writes no
+state, so a layer recomputed in the backward reads what the first pass
+read.  `cfg.remat` other than "none" recomputes each layer in the
+backward from its input alone (`torch.utils.checkpoint`, the reference's
+`jax.checkpoint` of the layer body: "dots" and "full" alike).  Prefix
+embeddings are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels.rwkv6.ops import wkv6
@@ -68,9 +78,9 @@ class RWKV6Config:
     max_seq_len: int = 1 << 20   # state is O(1); no positional table
 
     def __post_init__(self):
-        if self.remat != "none":
-            raise ValueError(f"the port has no remat={self.remat!r} path "
-                             "(training is not ported); only 'none'")
+        if self.remat not in common.REMAT:
+            raise ValueError(f"remat must be one of {common.REMAT}, got "
+                             f"{self.remat!r}")
 
     @property
     def n_heads(self) -> int:
@@ -139,10 +149,12 @@ def _channel_mix_init(cfg: RWKV6Config, gen: torch.Generator, dev
 
 def init_params(cfg: RWKV6Config, seed: int = 0, device=None) -> Params:
     """Random weights from a torch generator seeded with `seed`, made on
-    `device` (CUDA unless told otherwise), with the reference's shapes,
-    scales and zero-initialised mixes, decay base and bonus."""
+    `device` (CUDA unless told otherwise; on the meta device, shapes and
+    dtypes alone), with the reference's shapes, scales and
+    zero-initialised mixes, decay base and bonus."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     layers = [{"ln1": common.layernorm_init(cfg.d_model, cfg.dtype, dev),
                "ln2": common.layernorm_init(cfg.d_model, cfg.dtype, dev),
                "time_mix": _time_mix_init(cfg, gen, dev),
@@ -183,10 +195,12 @@ def state_from_jax(cfg: RWKV6Config, tree: Params, device=None) -> Params:
 # Time and channel mixing
 # ---------------------------------------------------------------------------
 
-def _token_shift(x: Tensor, shift_state: Tensor) -> Tensor:
-    """sx = previous token's input - x, with `shift_state` ([B, D]) before
-    the first token."""
-    return torch.cat([shift_state[:, None], x[:, :-1]], dim=1) - x
+def _token_shift(x: Tensor, shift_state: Optional[Tensor]) -> Tensor:
+    """sx = previous token's input - x, with `shift_state` ([B, D]; zero
+    when None) before the first token."""
+    first = x.new_zeros(x[:, :1].shape) if shift_state is None \
+        else shift_state[:, None]
+    return torch.cat([first, x[:, :-1]], dim=1) - x
 
 
 def _ddlerp(tm: Params, x: Tensor, sx: Tensor) -> Tuple[Tensor, ...]:
@@ -218,15 +232,22 @@ def _rkvwg(tm: Params, cfg: RWKV6Config, x: Tensor, sx: Tensor):
     return r, k, v, logw.reshape(b, s, h, n), g
 
 
-def _time_mix(tm: Params, cfg: RWKV6Config, x: Tensor, shift_state: Tensor,
-              wkv_state: Tensor, chunked: bool) -> Tensor:
+def _time_mix(tm: Params, cfg: RWKV6Config, x: Tensor,
+              shift_state: Optional[Tensor], wkv_state: Optional[Tensor],
+              chunked: bool) -> Tensor:
     """x: [B, S, D]; shift_state [B, D] and wkv_state [B, H, N, N] are
-    updated in place.  Returns the block's output."""
+    updated in place.  Both None (the training forward): the block starts
+    from zero states, the WKV state made here, and writes none.  Returns
+    the block's output."""
     b, s, d = x.shape
     r, k, v, logw, g = _rkvwg(tm, cfg, x, _token_shift(x, shift_state))
-    y, _ = wkv6(r, k, v, logw, tm["bonus"].float(), wkv_state,
+    state = wkv_state if wkv_state is not None else torch.zeros(
+        (b, cfg.n_heads, cfg.head_dim, cfg.head_dim), dtype=torch.float32,
+        device=x.device)
+    y, _ = wkv6(r, k, v, logw, tm["bonus"].float(), state,
                 chunk=min(cfg.chunk, s) if chunked else 1)
-    shift_state.copy_(x[:, -1])
+    if shift_state is not None:
+        shift_state.copy_(x[:, -1])
     y = y.reshape(b, s, d).to(x.dtype)
     # LayerNorm over the full d_model, as the reference's ln_x (not a
     # per-head GroupNorm).
@@ -235,10 +256,13 @@ def _time_mix(tm: Params, cfg: RWKV6Config, x: Tensor, shift_state: Tensor,
     return y @ tm["wo"]
 
 
-def _channel_mix(cm: Params, x: Tensor, shift_state: Tensor) -> Tensor:
-    """x: [B, S, D]; shift_state [B, D] is updated in place."""
+def _channel_mix(cm: Params, x: Tensor, shift_state: Optional[Tensor]
+                 ) -> Tensor:
+    """x: [B, S, D]; shift_state [B, D] is updated in place (None: a zero
+    state, nothing written)."""
     sx = _token_shift(x, shift_state)
-    shift_state.copy_(x[:, -1])
+    if shift_state is not None:
+        shift_state.copy_(x[:, -1])
     xk = x + sx * cm["maa_k"]
     xr = x + sx * cm["maa_r"]
     k = torch.square(torch.relu(xk @ cm["wk"]))
@@ -268,14 +292,34 @@ def init_cache(cfg: RWKV6Config, batch: int, max_len: int,
     return init_state(cfg, batch, device)
 
 
-def _run(cfg: RWKV6Config, params: Params, x: Tensor, state: Params,
-         chunked: bool) -> Tensor:
+def _layer(cfg: RWKV6Config, lp: Params, x: Tensor, chunked: bool,
+           tm_shift: Optional[Tensor] = None,
+           cm_shift: Optional[Tensor] = None,
+           wkv: Optional[Tensor] = None) -> Tensor:
+    """One layer over x, its states updated in place (all None: zero
+    states, nothing written)."""
+    h = common.layernorm(lp["ln1"], x)
+    x = x + _time_mix(lp["time_mix"], cfg, h, tm_shift, wkv, chunked)
+    h = common.layernorm(lp["ln2"], x)
+    return x + _channel_mix(lp["channel_mix"], h, cm_shift)
+
+
+def _run(cfg: RWKV6Config, params: Params, x: Tensor,
+         state: Optional[Params], chunked: bool) -> Tensor:
+    """The layers over x, their states in `state` (updated in place); with
+    `state` None (the training forward, chunked) every layer starts from
+    zero states and is recomputed in the backward as `cfg.remat` says."""
+    if state is None:
+        layer = _layer
+        if cfg.remat != "none" and torch.is_grad_enabled():
+            layer = functools.partial(torch_checkpoint.checkpoint, _layer,
+                                      use_reentrant=False)
+        for lp in params["layers"]:
+            x = layer(cfg, lp, x, True)
+        return x
     for i, lp in enumerate(params["layers"]):
-        h = common.layernorm(lp["ln1"], x)
-        x = x + _time_mix(lp["time_mix"], cfg, h, state["tm_shift"][i],
-                          state["wkv"][i], chunked)
-        h = common.layernorm(lp["ln2"], x)
-        x = x + _channel_mix(lp["channel_mix"], h, state["cm_shift"][i])
+        x = _layer(cfg, lp, x, chunked, state["tm_shift"][i],
+                   state["cm_shift"][i], state["wkv"][i])
     return x
 
 
@@ -284,16 +328,21 @@ def forward(cfg: RWKV6Config, params: Params, tokens: Tensor
     """tokens: [B, S] int.  Returns (logits [B, S, V] fp32, 0): the whole
     sequence in chunked form from a zero state, right-padded to a chunk
     multiple as the reference does (the recurrence is causal, so padded
-    steps cannot reach real positions)."""
+    steps cannot reach real positions).  Differentiable (the training
+    forward: no state is written)."""
     x = common.layernorm(params["ln0"], common.embed(params, tokens))
     b, s, d = x.shape
     pad = (-s) % cfg.chunk
     if pad:
         x = torch.cat([x, x.new_zeros((b, pad, d))], dim=1)
-    x = _run(cfg, params, x, init_state(cfg, b, x.device), chunked=True)
+    x = _run(cfg, params, x, None, chunked=True)
     x = common.layernorm(params["final_norm"], x[:, :s])
     logits = common.unembed(params, x, cfg.tie_embeddings)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+#: Mean next-token cross entropy (`common.lm_loss`).
+loss_fn = functools.partial(common.lm_loss, forward)
 
 
 def prefill(cfg: RWKV6Config, params: Params, tokens: Tensor, cache: Params,

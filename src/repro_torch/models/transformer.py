@@ -9,7 +9,6 @@ cache.
 
 Public API (used by serving/, launch/ and the tests):
     init_params(cfg, seed, device)       -> params
-    abstract_params(cfg)                 -> params on the meta device
     params_from_jax(cfg, tree, device)   -> params from JAX's params tree
     forward(cfg, params, tokens, prefix_embeddings=None) -> (logits, aux)
     loss_fn(cfg, params, batch)          -> scalar loss
@@ -61,7 +60,7 @@ STATE_KEYS = ()
 _CHOICES = {"norm": ("rmsnorm", "layernorm"), "mlp_kind": ("gated", "dense"),
             "attn_impl": ("naive", "flash"),
             "kv_cache_dtype": ("native", "int8"),
-            "remat": ("none", "dots", "full")}
+            "remat": common.REMAT}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,12 +216,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     return params
 
 
-def abstract_params(cfg: TransformerConfig) -> Params:
-    """The params tree on the meta device: every leaf's shape and dtype, no
-    memory (the template a checkpoint is restored into)."""
-    return init_params(cfg, 0, "meta")
-
-
 #: Leaves whose dtype the reference's init fixes whatever `cfg.dtype` is
 #: (`repro/models/moe.py:57`: the router is made in fp32).
 _FIXED_DTYPES = {"router": torch.float32}
@@ -358,14 +351,9 @@ def forward(cfg: TransformerConfig, params: Params, tokens: Tensor,
     return _head(cfg, params, x), aux
 
 
-def loss_fn(cfg: TransformerConfig, params: Params,
-            batch: Dict[str, Tensor]) -> Tensor:
-    """Mean next-token cross entropy plus the MoE aux loss, fp32 scalar.
-    `batch`: "tokens" and "labels" [B, S] int, optional
-    "prefix_embeddings" [B, P, D]."""
-    logits, aux = forward(cfg, params, batch["tokens"],
-                          batch.get("prefix_embeddings"))
-    return common.cross_entropy_loss(logits, batch["labels"].long()) + aux
+#: Mean next-token cross entropy plus the MoE aux loss (`common.lm_loss`;
+#: `batch` may add "prefix_embeddings").
+loss_fn = functools.partial(common.lm_loss, forward)
 
 
 # ---------------------------------------------------------------------------

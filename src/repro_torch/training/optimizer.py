@@ -10,10 +10,10 @@ learning rate, the bias corrections and the clip scale are device scalars.
 functional update returns new trees; in place saves a copy of each).
 
 Weight decay follows the reference's choice of leaves.  It decays a leaf
-of more than one dimension; its per-layer leaves are stacked on a leading
-`[layers, ...]` axis, so every layer's norm scales and biases decay too,
-and only the unstacked 1-D leaves (the final norm) do not.  The port keeps
-layers as a list of per-layer dicts, so a leaf under a key of `STACKED`
+of more than one dimension; its per-layer (per-block) leaves are stacked
+on a leading axis, so every layer's norm scales and biases decay too, and
+only the unstacked 1-D leaves (final norms) do not.  The port keeps those
+groups as lists of per-layer dicts, so a leaf under a key of `STACKED`
 counts that axis: it decays if `ndim + 1 > 1`, as the reference's does.
 """
 
@@ -29,8 +29,13 @@ from repro_torch.training import tree as tree_mod
 
 Tensor = torch.Tensor
 
-#: Keys whose subtrees the reference stacks over layers.
-STACKED = ("layers",)
+#: Top-level keys whose subtrees the reference stacks over layers or
+#: blocks: the transformer's and rwkv6's "layers", recurrentgemma's three
+#: block groups, the encoder-decoder's two layer stacks.  (recurrentgemma's
+#: "norms_temporal" / "norms_mlp" are [n_layers, d] arrays in both
+#: packages and need no entry.)
+STACKED = ("layers", "rec_blocks", "attn_blocks", "mlps", "enc_layers",
+           "dec_layers")
 
 
 class AdamWState(NamedTuple):

@@ -12,7 +12,9 @@ fp32 (its kernel computes in fp32 from bf16 inputs too, so bf16 is held to
 2e-2); the RG-LRU scan (fp32 only), whose state carries every earlier step
 at another rounding order than the plain versions', 1e-4, and its gated
 front end (fp32 or bf16 pre-activations, fp32 arithmetic) 1e-4 of
-1 + |ref|.  Prefill
+1 + |ref|.  The backward kernels (RMSNorm, the grouped GEMM, WKV6, the
+gated RG-LRU) are held to autograd of their plain versions as 1e-4 (fp32)
+and 2e-2 (bf16) of 1 + |ref|, and give the same bits on a second call.  Prefill
 attention over long prompts, whose late rows are small (RMS ~0.03), is
 held row by row to tol times each row's max |ref| (`row_scaled_error`).
 
@@ -28,7 +30,7 @@ import pytest
 import torch
 
 import repro_torch.configs as torch_configs
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import backward_launch_counts, launch_counts
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fl_ops
 from repro_torch.kernels.flash_attention.ref import row_scaled_error
@@ -1168,12 +1170,104 @@ def test_grouped_gemm_backward_matches_plain(rnd, dtype):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("dtype", list(SUM_TOL))
+def test_wkv6_backward_kernel_matches_plain(rnd, dtype):
+    """The WKV6 backward kernel (dr, dk, dv, dlogw, dbonus) against
+    autograd of the chunked plain version from a nonzero initial state, at
+    every head dim, S not a multiple of the forward's chunk (the backward
+    walks the steps), strided inputs and rwkv6-3b's heads, as |err| <=
+    tol (1 + |ref|); one launch a call, the same bits twice; and autograd
+    through `wkv6` (the forward and backward kernels) gives the same."""
+    dt = getattr(torch, dtype)
+    tol = SUM_TOL[dtype]
+    cases = ((2, 37, 3, 64, 72, 1), (3, 16, 5, 16, None, 8),
+             (1, 50, 2, 32, 40, 5), (2, 96, 40, 64, None, 32))
+    for b, s, h, n, width, chunk in cases:
+        r, k, v, logw, u, st = _wkv_inputs(rnd, b, s, h, n, dt, width=width)
+        dy = rnd((b, s, h, n), torch.float32)
+        want = wk_ops.wkv6_bwd_ref(dy, r, k, v, logw, u, st, chunk)
+        before = wk_ops.bwd_launches
+        got = wk_ops.wkv6_backward(dy, r, k, v, logw, u, st)
+        again = wk_ops.wkv6_backward(dy, r, k, v, logw, u, st)
+        torch.cuda.synchronize()
+        assert wk_ops.bwd_launches == before + 2
+        for name, g, w, g2 in zip(("dr", "dk", "dv", "dlogw", "dbonus"),
+                                  got, want, again):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert bool(torch.isfinite(g).all()), name
+            _sum_close(g, w, tol)
+            assert torch.equal(g, g2), (name, b, s, h, n)
+    # Autograd through the forward and backward kernels.
+    r, k, v, logw, u, st = _wkv_inputs(rnd, 2, 64, 4, 64, dt)
+    dy = rnd((2, 64, 4, 64), torch.float32)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (r, k, v, logw, u)]
+    state = st.clone()
+    fwd, bwd = wk_ops.launches, wk_ops.bwd_launches
+    y, out = wk_ops.wkv6(*leaves, state, chunk=32)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert out is state and not out.requires_grad
+    assert (wk_ops.launches, wk_ops.bwd_launches) == (fwd + 1, bwd + 1)
+    for g, w in zip(grads, wk_ops.wkv6_backward(dy, r, k, v, logw, u, st)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", list(SUM_TOL))
+def test_rglru_backward_kernel_matches_plain(rnd, dtype):
+    """The gated RG-LRU backward kernel (dza, dzi, dy and the per-channel
+    sums) against autograd of `rglru_gates_ref` and the scan from a nonzero
+    initial state, at recurrentgemma-9b's width (16-byte accesses), a
+    ragged W of strided views (scalar accesses and the tail), one step and
+    one batch row, as |err| <= tol (1 + |ref|); one launch a call, the same
+    bits twice; and autograd through `rglru_gated` gives the same."""
+    dt = getattr(torch, dtype)
+    tol = SUM_TOL[dtype]
+    for b, s, w, width in ((3, 37, 4096, None), (3, 21, 203, 235),
+                           (2, 1, 64, None), (1, 70, 1030, None)):
+        za, zi, y, b_a, b_i, lam, h0 = _gated_inputs(rnd, b, s, w, dt,
+                                                     width)
+        inputs = (za, zi, y, b_a, b_i, lam)
+        h, _ = rg_ops.rglru_gated(*inputs, h0.clone())
+        dh = rnd((b, s, w), torch.float32)
+        want = rg_ops.rglru_gated_bwd_ref(dh, *inputs, h0)
+        before = rg_ops.bwd_launches
+        got = rg_ops.rglru_gated_backward(dh, *inputs, h0, h)
+        again = rg_ops.rglru_gated_backward(dh, *inputs, h0, h)
+        torch.cuda.synchronize()
+        assert rg_ops.bwd_launches == before + 2
+        for name, g, ref, g2 in zip(("dza", "dzi", "dy", "b_a", "b_i",
+                                     "lambda"), got, want, again):
+            assert g.dtype == ref.dtype and g.shape == ref.shape, name
+            assert bool(torch.isfinite(g).all()), name
+            _sum_close(g, ref, tol)
+            assert torch.equal(g, g2), (name, b, s, w)
+    # Autograd through the forward and backward kernels.
+    za, zi, y, b_a, b_i, lam, h0 = _gated_inputs(rnd, 2, 40, 512, dt)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (za, zi, y, b_a, b_i, lam)]
+    state = h0.clone()
+    fwd, bwd = rg_ops.launches, rg_ops.bwd_launches
+    h, out = rg_ops.rglru_gated(*leaves, state)
+    dh = rnd((2, 40, 512), torch.float32)
+    grads = torch.autograd.grad(h, leaves, dh)
+    assert out is state and not out.requires_grad
+    assert (rg_ops.launches, rg_ops.bwd_launches) == (fwd + 1, bwd + 1)
+    want = rg_ops.rglru_gated_backward(dh, za, zi, y, b_a, b_i, lam, h0,
+                                       h.detach())
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b", "rwkv6-3b",
+                                  "recurrentgemma-9b"])
 def test_gradient_reaches_every_leaf_on_the_card(card, arch):
     """The smoke model's loss and gradients in fp32, card against CPU
     (plain versions), on the same params and batch: every leaf has a
     gradient within 1e-3 of the CPU's norm (a gradient cut at a kernel
-    fails that), and the kernels' backward ran."""
+    fails that), and the kernels' backward ran (RMSNorm's where the model
+    has RMSNorms, the grouped GEMM's, WKV6's, the gated RG-LRU's)."""
     from repro_torch.training import tree
     cfg = dataclasses.replace(torch_configs.get_smoke(arch),
                               dtype=torch.float32)
@@ -1189,14 +1283,17 @@ def test_gradient_reaches_every_leaf_on_the_card(card, arch):
         b = {k: v.to(device) for k, v in batch.items()}
         loss = bundle.loss_fn(p, b)
         return loss, torch.autograd.grad(loss, tree.leaves(p))
-    before = launch_counts()
-    bwd = rms_ops.bwd_launches, mg_ops.dx_launches, mg_ops.dw_launches
+    before = {**launch_counts(), **backward_launch_counts()}
     loss_c, g_card = grads("cuda")
     loss_h, g_cpu = grads("cpu")
-    assert rms_ops.bwd_launches > bwd[0]
-    assert launch_counts()["rmsnorm"] > before["rmsnorm"]
-    if cfg.moe is not None:
-        assert mg_ops.dx_launches > bwd[1] and mg_ops.dw_launches > bwd[2]
+    after = {**launch_counts(), **backward_launch_counts()}
+    ran = {k for k in after if after[k] > before[k]}
+    want = {"rwkv6": {"wkv6", "wkv6_bwd"},
+            "rglru": {"rglru", "rglru_bwd", "rmsnorm", "rmsnorm_bwd"}}.get(
+                bundle.family, {"rmsnorm", "rmsnorm_bwd"})
+    if getattr(cfg, "moe", None) is not None:
+        want |= {"moe_gemm", "moe_gemm_dx", "moe_gemm_dw"}
+    assert want <= ran, (want, ran)
     assert abs(loss_c.item() - loss_h.item()) <= 1e-4 * abs(loss_h.item())
     for (path, _), gc, gh in zip(tree.flatten_with_paths(params), g_card,
                                  g_cpu):

@@ -366,8 +366,11 @@ def test_config_matches_reference():
         assert t.n_active_params == j.n_active_params
     assert torch_configs.get(ARCH).n_params == 9_396_559_872
     smoke = torch_configs.get_smoke(ARCH)
+    # Training's remat policies are taken; an unknown one is refused.
+    for remat in ("dots", "full"):
+        assert dataclasses.replace(smoke, remat=remat).remat == remat
     with pytest.raises(ValueError, match="remat"):
-        dataclasses.replace(smoke, remat="full")
+        dataclasses.replace(smoke, remat="some")
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(smoke, attn_impl="splash")
 

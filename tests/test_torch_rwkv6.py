@@ -192,8 +192,12 @@ def test_config_matches_reference():
         assert t.n_params == j.n_params
         assert t.n_active_params == j.n_active_params
     assert torch_configs.get(ARCH).n_params == 3_099_688_960
+    # Training's remat policies are taken; an unknown one is refused.
+    for remat in ("dots", "full"):
+        assert dataclasses.replace(torch_configs.get_smoke(ARCH),
+                                   remat=remat).remat == remat
     with pytest.raises(ValueError, match="remat"):
-        dataclasses.replace(torch_configs.get_smoke(ARCH), remat="full")
+        dataclasses.replace(torch_configs.get_smoke(ARCH), remat="some")
 
 
 def test_params_from_jax_and_init_params_make_the_reference_tree():

@@ -155,18 +155,6 @@ def test_abstract_params_match_init_and_the_reference(arch):
         assert jax.tree.map(lambda t: tuple(t.shape), lp) == shapes
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"])
-def test_families_without_backward_kernels_raise(arch):
-    bundle = bundle_for(torch_configs.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="9b"):
-        bundle.loss_fn({}, {})
-    with pytest.raises(NotImplementedError, match="9b"):
-        bundle.abstract_params()
-    with pytest.raises(NotImplementedError, match="9b"):
-        train.run_training(arch, steps=1, device="cpu")
-
-
 def test_rmsnorm_backward_plain_version_matches_jax():
     """`rmsnorm_backward` (its plain version on the CPU) against
     jax.vjp of the reference's norm, and against torch autograd."""
