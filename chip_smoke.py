@@ -519,6 +519,48 @@ def wkv6_bwd_flops(b, s, h, n, chunk, exact_v):
             for kind, x in per_chunk.items()}
 
 
+def draw(torch, gen, shape, dtype, scale=1.0):
+    """scale x standard normal values of `shape` from the generator `gen`
+    (on its device), cast to `dtype`."""
+    return (scale * torch.randn(shape, generator=gen, device=gen.device)
+            ).to(dtype)
+
+
+def rglru_lambda(torch, gen, w):
+    """lambda from the reference's init: softplus^-1 of the decay
+    strengths -log(u) / 8, u ~ U(0.9, 0.999)."""
+    u = torch.empty((w,), device=gen.device).uniform_(0.9, 0.999,
+                                                      generator=gen)
+    return torch.log(torch.expm1(-torch.log(u) / 8.0))
+
+
+def wkv6_inputs(torch, gen, shape, dt):
+    """WKV6's inputs over [B, S, H, N] `shape`, drawn from `gen` in this
+    order: r, k, v in `dt`, logw in the model's decay range clamped to
+    [-4, -1e-6], the bonus u [H, N] and a nonzero initial state
+    [B, H, N, N] (fp32)."""
+    b, _, h, n = shape
+    f32 = torch.float32
+    r, k = draw(torch, gen, shape, dt, 0.5), draw(torch, gen, shape, dt, 0.5)
+    v = draw(torch, gen, shape, dt)
+    logw = (-torch.exp(draw(torch, gen, shape, f32) - 2.0)).clamp(-4.0,
+                                                                  -1e-6)
+    return (r, k, v, logw, draw(torch, gen, (h, n), f32, 0.2),
+            draw(torch, gen, (b, h, n, n), f32, 0.5))
+
+
+def rglru_gated_inputs(torch, gen, shape, dt):
+    """The gated RG-LRU's inputs over [B, S, W] `shape`, drawn from `gen`
+    in this order: za, zi, y in `dt`, b_a, b_i and lambda [W] (fp32, the
+    reference's init for lambda) and a nonzero initial state h0 [B, W]."""
+    b, _, w = shape
+    f32 = torch.float32
+    za, zi, y = (draw(torch, gen, shape, dt) for _ in range(3))
+    vectors = (draw(torch, gen, (w,), f32, 0.5),
+               draw(torch, gen, (w,), f32, 0.5), rglru_lambda(torch, gen, w))
+    return za, zi, y, vectors, draw(torch, gen, (b, w), f32)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -532,8 +574,16 @@ def kernel_checks(torch, ops):
     failures, main = [], {}
 
     def rnd(shape, dtype, scale=1.0):
-        return (scale * torch.randn(shape, generator=gen, device=dev)
-                ).to(dtype)
+        return draw(torch, gen, shape, dtype, scale)
+
+    def own_stream(seed, fn, *args, **kw):
+        """fn(*args, **kw) with its inputs drawn from a generator of its
+        own, so that the rows after it draw what they drew before it was
+        added."""
+        nonlocal gen
+        saved, gen = gen, torch.Generator(device=dev).manual_seed(seed)
+        fn(*args, **kw)
+        gen = saved
 
     def ints(lo, hi, n):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev,
@@ -728,11 +778,7 @@ def kernel_checks(torch, ops):
         wk = ops["wkv6"]
         h, n = 40, 64
         shape = (b, s_len, h, n)
-        r, k, v = rnd(shape, dt, 0.5), rnd(shape, dt, 0.5), rnd(shape, dt)
-        logw = (-torch.exp(rnd(shape, torch.float32) - 2.0)).clamp(-4.0,
-                                                                   -1e-6)
-        u = rnd((h, n), torch.float32, 0.2)
-        st0 = rnd((b, h, n, n), torch.float32, 0.5)
+        r, k, v, logw, u, st0 = wkv6_inputs(torch, gen, shape, dt)
         # Calls take turns over 4 copies of the 18.4 MB state (73 MB, more
         # than the 50 MB L2), so each finds its state cold, as a layer's
         # decode step does after the other 31 layers' weights went by.  The
@@ -767,12 +813,6 @@ def kernel_checks(torch, ops):
                 f"version's call time; its ~1,600 launches a call overrun "
                 f"the launch queue, so no primed window holds them)")
 
-    def rglru_lambda(w):
-        """lambda from the reference's init: softplus^-1 of the decay
-        strengths -log(u) / 8, u ~ U(0.9, 0.999)."""
-        u = torch.empty((w,), device=dev).uniform_(0.9, 0.999, generator=gen)
-        return torch.log(torch.expm1(-torch.log(u) / 8.0))
-
     def rglru_case(s_len):
         """The plain front end from fp32 log_a and b."""
         rg = ops["rglru"]
@@ -781,7 +821,7 @@ def kernel_checks(torch, ops):
         f32 = torch.float32
         # The model's decay range: log_a = -8 softplus(lambda) r with
         # lambda from the reference's init and r a sigmoid gate.
-        lam = rglru_lambda(w)
+        lam = rglru_lambda(torch, gen, w)
         sets = [(-8.0 * F.softplus(lam) * torch.sigmoid(rnd(shape, f32)),
                  rnd(shape, f32), rnd((b, w), f32)) for _ in range(4)]
         # Calls take turns over 4 input sets (59 MB at the prefill shape,
@@ -810,7 +850,7 @@ def kernel_checks(torch, ops):
         shape = (b, s_len, w)
         f32, bf16 = torch.float32, torch.bfloat16
         vectors = (0.5 * rnd((w,), f32), 0.5 * rnd((w,), f32),
-                   rglru_lambda(w))
+                   rglru_lambda(torch, gen, w))
         # 4 input sets in turn (44 MB at the prefill shape), the kernel's
         # states copies, as in rglru_case.
         sets = [(rnd(shape, bf16), rnd(shape, bf16), rnd(shape, bf16),
@@ -855,17 +895,19 @@ def kernel_checks(torch, ops):
         e = torch.tensor([], dtype=dt).element_size()
         b, s, h, n = TRAIN_BATCH, TRAIN_SEQ, 40, 64
         shape = (b, s, h, n)
-        r, k, v = rnd(shape, dt, 0.5), rnd(shape, dt, 0.5), rnd(shape, dt)
-        logw = (-torch.exp(rnd(shape, torch.float32) - 2.0)).clamp(-4.0,
-                                                                   -1e-6)
-        u = rnd((h, n), torch.float32, 0.2)
-        st0 = rnd((b, h, n, n), torch.float32, 0.5)
+        r, k, v, logw, u, st0 = wkv6_inputs(torch, gen, shape, dt)
         dy = rnd(shape, torch.float32)
         m = r.numel()
         nbytes = 6 * m * e + 3 * 4 * m + 2 * 4 * u.numel() + 4 * st0.numel()
+        plan = wk.bwd_plan(b, s, h, n, e, r.stride(), True)
+        per_sm = wk.bwd_ctas_an_sm(dt, n, plan.staging)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         note = shape + ("forward chunk 32",
-                        f"{b * h} CTAs of {wk.bwd_threads(n)}",
-                        "nonzero initial state")
+                        f"{plan.ctas} CTAs of {plan.threads}, {plan.chunks} "
+                        f"chunks of {wk.BWD_CHUNK} twice, {plan.staging}, "
+                        f"{per_sm} an SM by the built kernel's occupancy, "
+                        f"{-(-plan.ctas // (per_sm * sms))} wave(s) on "
+                        f"{sms} SMs", "nonzero initial state")
         check("wkv6_bwd", dtype_name, note,
               lambda: wk.wkv6_backward(dy, r, k, v, logw, u, st0),
               lambda: wk.wkv6_bwd_ref(dy, r, k, v, logw, u, st0, 32), None,
@@ -893,17 +935,15 @@ def kernel_checks(torch, ops):
         b, s, w = TRAIN_BATCH, TRAIN_SEQ, 4096
         shape = (b, s, w)
         f32 = torch.float32
-        za, zi, y = (rnd(shape, dt) for _ in range(3))
-        vectors = (0.5 * rnd((w,), f32), 0.5 * rnd((w,), f32),
-                   rglru_lambda(w))
-        h0 = rnd((b, w), f32)
+        za, zi, y, vectors, h0 = rglru_gated_inputs(torch, gen, shape, dt)
         h, _ = rg.rglru_gated(za, zi, y, *vectors, h0.clone())
         dh = rnd(shape, f32)
         m = b * s * w
-        note = shape + (f"za/zi/y {dtype_name}, "
-                        f"{b * -(-w // rg.CTA_THREADS)} CTAs of "
-                        f"{rg.CTA_THREADS}, a thread a channel",
-                        "nonzero initial state")
+        plan = rg.bwd_plan(b, s, w, rg.sm_count(za.device))
+        note = shape + (f"za/zi/y {dtype_name}, {plan.chunks} chunks of "
+                        f"{plan.chunk} steps, {plan.launches} launches, "
+                        f"{plan.ctas} CTAs of {rg.CTA_THREADS}, a thread a "
+                        f"channel of a chunk", "nonzero initial state")
         check("rglru_bwd", dtype_name, note,
               lambda: rg.rglru_gated_backward(dh, za, zi, y, *vectors, h0,
                                               h),
@@ -1218,12 +1258,14 @@ def kernel_checks(torch, ops):
         # while one computes matters) and the decode step at batch 28.
         # The kernel computes in fp32 whatever the input type.
         # A one-row admission prefill (phase 7) runs the chunked form at
-        # batch 1.
+        # batch 1; training (phase 12(e)) at rwkv6-3b's B 8 x S 512.
         for s_len, chunk, b in ((64, 32, MAX_BATCH),
                                 (WKV6_LONG_PROMPT, 32, LONG_BATCH),
                                 (64, 32, 1), (1, 1, MAX_BATCH)):
             wkv6_case(dtype_name, s_len, chunk, is_bf16 and s_len == 1,
                       b=b)
+        own_stream(TRAIN_SEQ, wkv6_case, dtype_name, TRAIN_SEQ, 32, False,
+                   b=TRAIN_BATCH)
 
         # The training backward of WKV6 and of the gated RG-LRU at
         # rwkv6-3b's and recurrentgemma-9b's training shapes (phase 12(e)
@@ -1239,6 +1281,8 @@ def kernel_checks(torch, ops):
         rglru_case(s_len)
         rglru_gated_case(s_len)
     rglru_gated_case(PROMPT_LEN, b=1)        # a one-row admission prefill
+    # Training's forward (phase 12(f)): recurrentgemma-9b's B 8 x S 512.
+    own_stream(TRAIN_SEQ, rglru_gated_case, TRAIN_SEQ, b=TRAIN_BATCH)
     if failures:
         fail("kernel != plain version: " + "; ".join(failures))
     return main
@@ -3418,11 +3462,14 @@ def expected_train_launches(cfg, steps):
     bf16 with their operands in place, in fp32 each on one transposed
     copy.  rwkv6: one WKV6 forward and one backward a layer, and under any
     remat but "none" one more forward a layer (the layer recomputed).
-    recurrentgemma: one gated RG-LRU forward and backward a recurrent
-    block, 2 L + 1 RMSNorms forward and backward (remat recomputes
-    nothing, as in the reference).  The encoder-decoder: none."""
+    recurrentgemma: one gated RG-LRU forward a recurrent block and its
+    backward, `bwd_plan`'s launches at B TRAIN_BATCH x S TRAIN_SEQ (two:
+    the chunk-local walk, then the walk from the carries), 2 L + 1
+    RMSNorms forward and backward (remat recomputes nothing, as in the
+    reference).  The encoder-decoder: none."""
     import torch
 
+    from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.models.registry import bundle_for
     family = bundle_for(cfg).family
     per_step = {}
@@ -3444,7 +3491,10 @@ def expected_train_launches(cfg, steps):
                     "wkv6_bwd": cfg.n_layers}
     elif family == "rglru":
         norms = 2 * cfg.n_layers + 1
-        per_step = {"rglru": cfg.n_recurrent, "rglru_bwd": cfg.n_recurrent,
+        bwd = rg_ops.bwd_plan(TRAIN_BATCH, TRAIN_SEQ, cfg.width,
+                              rg_ops.sm_count(torch.device("cuda")))
+        per_step = {"rglru": cfg.n_recurrent,
+                    "rglru_bwd": cfg.n_recurrent * bwd.launches,
                     "rmsnorm": norms, "rmsnorm_bwd": norms}
     return {k: steps * per_step.get(k, 0) for k in TRAIN_COUNTERS}
 

@@ -228,22 +228,42 @@ int launch(const Args& a, int vec, void* stream) {
 //   dzi = g sqrt(max(1 - a^2, 1e-9)) y i (1 - i),
 //   dy  = g sqrt(max(1 - a^2, 1e-9)) i,
 // and the sums over B and S: d b_a = sum dza, d b_i = sum dzi, d lambda =
-// -8 sigmoid(lambda) sum dlog_a r.  A thread walks one channel of one
-// batch row backward (so B x W threads: at recurrentgemma-9b's training
-// shape 128 CTAs, against the forward's 32 of 4 channels a thread), keeps
-// a ring of kBwdDepth steps of loads in flight ahead of its walk (the
-// inputs as stored, converted at use), and carries its three sums in fp64
-// over S.  The sums over B are taken in the same launch without atomic
-// sums: each CTA writes its row's sums to `part`, and the last of a column
-// of B CTAs to finish (a ticket, `last_to_arrive`) adds them in b order,
-// in fp64.  The same inputs give the same bits.  Accesses are one element
-// a thread, coalesced across a warp, whatever W, the strides or the bases.
+// -8 sigmoid(lambda) sum dlog_a r.
+//
+// g is linear in its carry, and every output of step t is g_t times
+// factors of step t alone, so the sequence splits into chunks of Lc steps
+// (`kernels/rglru/ops.py:bwd_plan`) walked side by side, in two launches:
+//  1. `rglru_gated_bwd_local`, chunks 1 .. n - 1: each (row, chunk,
+//     channel) walks its chunk backward from a zero carry and records the
+//     carry it would pass on, L_c = a_{t0} g^_{t0}, and the product of a
+//     over the chunk, P_c (za and dh read; chunk 0 passes nothing on);
+//  2. `rglru_gated_bwd_kernel`: each (row, chunk, channel) makes its true
+//     carry from the later chunks' records, C = L_c' + P_c' C from the
+//     last chunk down, walks its chunk again from it and writes dza, dzi,
+//     dy and its three sums in fp64 (`part`, a slot a row and chunk).
+// A thread walks one channel and keeps a ring of kBwdDepth steps of loads
+// in flight ahead of its walk (the inputs as stored, converted at use).
+// The sums over B and the chunks are taken in the second launch without
+// atomic sums: the last of a column's B x n CTAs to finish (a ticket,
+// `last_to_arrive`) adds the slots in (row, chunk) order, in fp64.  The
+// same inputs give the same bits.  Accesses are one element a thread,
+// coalesced across a warp, whatever W, the strides or the bases.
 //
 // Bound on the H100: bytes.  At recurrentgemma-9b's training shape (B 8,
 // S 512, W 4096, bf16 za, zi, y) it reads za, zi, y, h and dh and writes
-// dza, dzi and dy once: ~335 MB, 0.1 ms at 3.35 TB/s.
+// dza, dzi and dy once: ~335 MB, 0.1 ms at 3.35 TB/s.  What holds it back
+// is memory latency with too few loads in flight: a walk of all S steps a
+// thread would give B x W threads (128 CTAs here), one CTA an SM, each
+// thread's next load waiting on its ring.  Chunks of 64 give 8 x 128 CTAs
+// of the second launch, and the first reads only za and dh (~1.3x the
+// bound's bytes in all).
 
-constexpr int kBwdDepth = 8;    // steps of loads in flight ahead of the walk
+// Steps of loads in flight ahead of a walk, and the CTAs an SM runs: a
+// short ring keeps a thread's registers few enough for four CTAs of 256 an
+// SM, and more threads in flight hide more of each step's latency than a
+// deeper ring does (rings of 4 and 8 ran slower on the H100).
+constexpr int kBwdDepth = 2;
+constexpr int kBwdCtasPerSm = 4;
 
 struct BwdArgs {
   const void* za;
@@ -258,12 +278,14 @@ struct BwdArgs {
   void* dza;           // [B, S, W] contiguous, the inputs' type
   void* dzi;
   void* dy;
-  float* part;         // [3, B, W]: each row's sums over S
+  double* part;        // [3, B x n, W]: each (row, chunk)'s sums
+  float* carry;        // [2, B x n, W]: L_c, then P_c
   unsigned int* tickets;
   float* d_b_a;        // [W]
   float* d_b_i;
   float* d_lam;
   int B, S, W;
+  int chunk, chunks;   // Lc and n = ceil(S / Lc)
   long long sb, ss;    // the inputs' batch and step strides, in elements
 };
 
@@ -271,14 +293,72 @@ __device__ __forceinline__ float sigmoid_acc(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+__device__ __forceinline__ float softplus_neg8(float lam) {
+  return -8.f * (lam > 20.f ? lam : log1pf(expf(lam)));
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwdCtasPerSm)
+    rglru_gated_bwd_local(const BwdArgs a) {
+  const int w = blockIdx.x * kThreads + threadIdx.x;
+  if (w >= a.W) return;
+  const int per = a.chunks - 1;
+  const long long row = blockIdx.y / per;
+  const int c = 1 + static_cast<int>(blockIdx.y % per);
+  const int t0 = c * a.chunk, t1 = min(a.S, t0 + a.chunk);
+  const T* za = static_cast<const T*>(a.za) + row * a.sb + w;
+  const float* dh = a.dh + row * a.S * a.W + w;
+
+  T rz[kBwdDepth];
+  float rd[kBwdDepth];
+#pragma unroll
+  for (int d = 0; d < kBwdDepth; ++d) {
+    const int t = t1 - 1 - d;
+    if (t >= t0) {
+      rz[d] = za[static_cast<long long>(t) * a.ss];
+      rd[d] = dh[static_cast<long long>(t) * a.W];
+    }
+  }
+  const float ba = a.b_a[w];
+  const float neg_c = softplus_neg8(a.lam[w]);
+  float carry = 0.f, prod = 1.f;
+  for (int t1d = t1 - 1; t1d >= t0; t1d -= kBwdDepth) {
+#pragma unroll
+    for (int d = 0; d < kBwdDepth; ++d) {
+      const int t = t1d - d;
+      if (t < t0) break;
+      const float zv = repro::to_f(rz[d]), dv = rd[d];
+      if (t - kBwdDepth >= t0) {
+        rz[d] = za[static_cast<long long>(t - kBwdDepth) * a.ss];
+        rd[d] = dh[static_cast<long long>(t - kBwdDepth) * a.W];
+      }
+      const float av = expf(neg_c * sigmoid_acc(zv + ba));
+      carry = av * (dv + carry);
+      prod *= av;
+    }
+  }
+  const long long o = (row * a.chunks + c) * a.W + w;
+  a.carry[o] = carry;
+  a.carry[static_cast<long long>(a.B) * a.chunks * a.W + o] = prod;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBwdCtasPerSm)
     rglru_gated_bwd_kernel(const BwdArgs a) {
   __shared__ bool last;
   const int w = blockIdx.x * kThreads + threadIdx.x;
   const bool live = w < a.W;
-  const long long row = blockIdx.y;
+  const long long row = blockIdx.y / a.chunks;
+  const int c = static_cast<int>(blockIdx.y % a.chunks);
+  const long long slots = static_cast<long long>(a.B) * a.chunks;
   if (live) {
+    const int t0 = c * a.chunk, t1 = min(a.S, t0 + a.chunk);
+    // The carry into this chunk, from the later chunks' records.
+    float carry = 0.f;
+    for (int cc = a.chunks - 1; cc > c; --cc) {
+      const long long o = (row * a.chunks + cc) * a.W + w;
+      carry = a.carry[o] + a.carry[slots * a.W + o] * carry;
+    }
     const T* in[3];
     const void* bases[3] = {a.za, a.zi, a.y};
 #pragma unroll
@@ -301,21 +381,20 @@ __global__ void __launch_bounds__(kThreads)
     };
 #pragma unroll
     for (int d = 0; d < kBwdDepth; ++d)
-      if (d < a.S) load(a.S - 1 - d, rx[d], rf[d]);
+      if (t1 - 1 - d >= t0) load(t1 - 1 - d, rx[d], rf[d]);
     const float ba = a.b_a[w], bi = a.b_i[w], lam = a.lam[w];
-    const float neg_c = -8.f * (lam > 20.f ? lam : log1pf(expf(lam)));
-    float carry = 0.f;
+    const float neg_c = softplus_neg8(lam);
     double s_a = 0.0, s_i = 0.0, s_l = 0.0;
 
-    for (int t0 = a.S - 1; t0 >= 0; t0 -= kBwdDepth) {
+    for (int t1d = t1 - 1; t1d >= t0; t1d -= kBwdDepth) {
 #pragma unroll
       for (int d = 0; d < kBwdDepth; ++d) {
-        const int t = t0 - d;
-        if (t < 0) break;
+        const int t = t1d - d;
+        if (t < t0) break;
         const float za = repro::to_f(rx[d][0]), zi = repro::to_f(rx[d][1]);
         const float yv = repro::to_f(rx[d][2]);
         const float dh = rf[d][0], hp = rf[d][1];
-        if (t - kBwdDepth >= 0) load(t - kBwdDepth, rx[d], rf[d]);
+        if (t - kBwdDepth >= t0) load(t - kBwdDepth, rx[d], rf[d]);
         const float r = sigmoid_acc(za + ba);
         const float i = sigmoid_acc(zi + bi);
         const float av = expf(neg_c * r);
@@ -338,33 +417,43 @@ __global__ void __launch_bounds__(kThreads)
         carry = av * g;
       }
     }
-    const long long pw = row * a.W + w, plane = static_cast<long long>(a.B)
-                                                * a.W;
-    a.part[pw] = static_cast<float>(s_a);
-    a.part[plane + pw] = static_cast<float>(s_i);
-    a.part[2 * plane + pw] =
-        static_cast<float>(s_l * (-8.0 * sigmoid_acc(lam)));
+    const long long pw = (row * a.chunks + c) * a.W + w;
+    a.part[pw] = s_a;
+    a.part[slots * a.W + pw] = s_i;
+    a.part[2 * slots * a.W + pw] = s_l * (-8.0 * sigmoid_acc(lam));
   }
-  // The last of the column's B CTAs adds the rows' sums in b order.
-  if (!repro::last_to_arrive(a.tickets + blockIdx.x, a.B, &last) || !live)
+  // The last of the column's B x n CTAs adds the slots in (row, chunk)
+  // order.
+  if (!repro::last_to_arrive(a.tickets + blockIdx.x,
+                             static_cast<unsigned>(slots), &last) ||
+      !live)
     return;
   float* outs[3] = {a.d_b_a, a.d_b_i, a.d_lam};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     double acc = 0.0;
-    for (int b = 0; b < a.B; ++b)
-      acc += a.part[(static_cast<long long>(k) * a.B + b) * a.W + w];
+    for (long long sl = 0; sl < slots; ++sl)
+      acc += a.part[(k * slots + sl) * a.W + w];
     outs[k][w] = static_cast<float>(acc);
   }
 }
 
 template <typename T>
 int launch_bwd(const BwdArgs& a, void* stream) {
-  if (a.B < 1 || a.S < 1 || a.W < 1)
+  if (a.B < 1 || a.S < 1 || a.W < 1 || a.chunk < 1 ||
+      a.chunks != (a.S + a.chunk - 1) / a.chunk ||
+      static_cast<long long>(a.B) * a.chunks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.W + kThreads - 1) / kThreads, a.B);
-  rglru_gated_bwd_kernel<T><<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(a);
+  const unsigned cols = (a.W + kThreads - 1) / kThreads;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (a.chunks > 1) {
+    rglru_gated_bwd_local<T><<<dim3(cols, a.B * (a.chunks - 1)), kThreads,
+                               0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  rglru_gated_bwd_kernel<T><<<dim3(cols, a.B * a.chunks), kThreads, 0, s>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,26 +486,29 @@ extern "C" int rglru_gated_launch(const void* za, const void* zi,
 
 // The backward of `rglru_gated_launch` given dh fp32 [B, S, W] contiguous:
 // the inputs as there, h0 the state before the forward and h its output
-// (fp32, contiguous).  Writes dza, dzi and dy ([B, S, W] contiguous, the
-// inputs' type) and d_b_a, d_b_i and d_lam (fp32 [W]); `part` holds
-// 3 x B x W fp32 and `tickets` ceil(W / 256) zeroed counters (zero again
-// after the launch).
+// (fp32, contiguous), in chunks of `chunk` steps (n = ceil(S / chunk)).
+// Writes dza, dzi and dy ([B, S, W] contiguous, the inputs' type) and
+// d_b_a, d_b_i and d_lam (fp32 [W]); `part` holds 3 x B x n x W fp64 and
+// `carry` 2 x B x n x W fp32, `tickets` ceil(W / 256) zeroed counters (zero
+// again after the launch).  Two kernel launches where n > 1, else one.
 extern "C" int rglru_gated_bwd_launch(
     const void* za, const void* zi, const void* y, const void* b_a,
     const void* b_i, const void* lam, const void* h0, const void* h,
-    const void* dh, void* dza, void* dzi, void* dy, void* part,
+    const void* dh, void* dza, void* dzi, void* dy, void* part, void* carry,
     void* tickets, void* d_b_a, void* d_b_i, void* d_lam, int dtype, int B,
-    int S, int W, long long sb, long long ss, void* stream) {
+    int S, int W, int chunk, long long sb, long long ss, void* stream) {
+  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{za, zi, y, static_cast<const float*>(b_a),
                   static_cast<const float*>(b_i),
                   static_cast<const float*>(lam),
                   static_cast<const float*>(h0),
                   static_cast<const float*>(h),
                   static_cast<const float*>(dh), dza, dzi, dy,
-                  static_cast<float*>(part),
+                  static_cast<double*>(part), static_cast<float*>(carry),
                   static_cast<unsigned int*>(tickets),
                   static_cast<float*>(d_b_a), static_cast<float*>(d_b_i),
-                  static_cast<float*>(d_lam), B, S, W, sb, ss};
+                  static_cast<float*>(d_lam), B, S, W, chunk,
+                  (S + chunk - 1) / chunk, sb, ss};
   if (dtype == repro::kFloat32) return launch_bwd<float>(a, stream);
   if (dtype == repro::kBFloat16) return launch_bwd<__nv_bfloat16>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);

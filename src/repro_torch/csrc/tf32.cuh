@@ -63,6 +63,24 @@ __device__ __forceinline__ Split<K> split(const float (&x)[K]) {
   return s;
 }
 
+// x = big + small with both parts rounded to the nearest TF32 value (the
+// magnitude's half up, as cvt.rna; two integer instructions a part): small
+// is then exactly what the tensor core reads, and a product's error leans
+// neither way, where `split`'s truncations bias it toward zero (for sums
+// whose terms' errors add up).
+template <int K>
+__device__ __forceinline__ Split<K> split_rn(const float (&x)[K]) {
+  Split<K> s;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    s.big[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xffffe000u;
+    s.small[i] =
+        (__float_as_uint(x[i] - __uint_as_float(s.big[i])) + 0x1000u) &
+        0xffffe000u;
+  }
+  return s;
+}
+
 // d += a b for one m16n8k8 tile.  Fragments (g = lane / 4, t = lane % 4):
 // a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
 // b0 (k t, col g), b1 (t + 4, g); d0 (row g, col 2t), d1 (g, 2t + 1),
@@ -78,13 +96,13 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // a b at fp32 accuracy: big * big into `hi`, the cross terms into `lo`
 // (two accumulators, so that a run of products forms two short dependency
 // chains; the caller adds them, or passes one accumulator for both).
-// EXACT_A: a is exactly TF32 (bf16 values), so its small part is zero and
-// one cross term drops.
-template <bool EXACT_A = false>
+// EXACT_A (EXACT_B): a (b) is exactly TF32 (bf16 values), so its small
+// part is zero and one cross term drops.
+template <bool EXACT_A = false, bool EXACT_B = false>
 __device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
                                      const Split<4>& a, const Split<2>& b) {
   if constexpr (!EXACT_A) mma_tf32(lo, a.small, b.big);
-  mma_tf32(lo, a.big, b.small);
+  if constexpr (!EXACT_B) mma_tf32(lo, a.big, b.small);
   mma_tf32(hi, a.big, b.big);
 }
 

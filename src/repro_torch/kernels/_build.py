@@ -51,10 +51,12 @@ _ATTN = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 #: `moe_gemm_dx_launch` and `moe_gemm_dw_launch` (the bf16 backward's
 #: products, operands in place) and `moe_transpose_launch` (the fp32
 #: backward's transposed operands), rglru `rglru_gated_launch` (the gate
-#: arithmetic folded in) and `rglru_gated_bwd_launch` (its backward),
-#: rmsnorm `rmsnorm_bwd_launch` (the backward, its column sum in the same
-#: launch), wkv6 `wkv6_bwd_launch` (the backward, du's sum over the batch
-#: in the same launch).
+#: arithmetic folded in) and `rglru_gated_bwd_launch` (its backward: the
+#: sequence in chunks, two kernel launches, the sums over B and the chunks
+#: in the second), rmsnorm `rmsnorm_bwd_launch` (the backward, its column
+#: sum in the same launch), wkv6 `wkv6_bwd_launch` (the backward in chunked
+#: form, du's sum over the batch in the same launch) and
+#: `wkv6_bwd_occupancy` (CTAs of that kernel an SM holds; not a launch).
 SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
@@ -69,13 +71,15 @@ SIGNATURES = {
     "rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
     "rglru_gated_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _I, _P],
-    "rglru_gated_bwd_launch": [_P] * 17 + [_I, _I, _I, _I, _L, _L, _P],
+    "rglru_gated_bwd_launch": [_P] * 18 + [_I, _I, _I, _I, _I, _L, _L, _P],
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _F, _P],
     "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
                            _I, _I, _I, _I, _I, _I, _F, _P],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
                     _L, _L, _I, _P],
-    "wkv6_bwd_launch": [_P] * 14 + [_I, _I, _I, _I, _I, _L, _L, _L, _P],
+    "wkv6_bwd_launch": [_P] * 14 + [_I, _I, _I, _I, _I, _L, _L, _L, _I,
+                                    _P],
+    "wkv6_bwd_occupancy": [_I, _I, _I, _P],
 }
 
 _LOADED: Dict[Tuple[str, str], object] = {}

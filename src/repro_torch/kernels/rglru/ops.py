@@ -24,9 +24,11 @@ initial state is a constant of the backward (it must not require grad)
 and the final state is not differentiated.  Where autograd records, a
 CUDA call goes through `_RGLRUGatedFn`, which keeps a copy of the initial
 state and whose backward is the backward kernel (`rglru_gated_backward`:
-`rglru_gated_bwd_launch` in the same source, one launch a call, counted
-in `bwd_launches`; the plain version `rglru_gated_bwd_ref`).  Serving's
-tensors require no grad and launch the forward alone, as before."""
+`rglru_gated_bwd_launch` in the same source, the sequence in chunks as
+`bwd_plan` picks them, two kernel launches a call where there is more
+than one chunk, else one, each counted in `bwd_launches`; the plain
+version `rglru_gated_bwd_ref`).  Serving's tensors require no grad and
+launch the forward alone, as before."""
 
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch._device import SM_COUNT, sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.rglru.ref import (rglru_assoc_ref,
                                            rglru_gated_bwd_ref,
@@ -43,7 +46,8 @@ from repro_torch.kernels.rglru.ref import (rglru_assoc_ref,
 #: Kernel launches made through `rglru` and `rglru_gated` (the CPU path
 #: does not count).
 launches = 0
-#: Kernel launches made through `rglru_gated_backward` (one a call).
+#: Kernel launches made through `rglru_gated_backward` (`bwd_plan`'s
+#: `launches` a call).
 bwd_launches = 0
 
 #: Consecutive channels a thread of the kernel owns.
@@ -74,6 +78,47 @@ def launch_plan(b: int, s: int, w: int, strides: Sequence[int],
     live = [st for st, n in zip(strides, (b, s)) if n > 1]
     vec = aligned and w % LANES == 0 and all(st % LANES == 0 for st in live)
     return ScanPlan(vec, b * -(-w // (LANES * CTA_THREADS)))
+
+
+#: Chunk lengths the backward tries, longest first, and the CTAs an SM
+#: its walk should have at least (so that B x W channels of a short batch
+#: still fill the card).
+BWD_CHUNKS = (64, 32, 16, 8)
+BWD_FILL = 4
+#: Most rows of a CUDA grid (its y dimension): B x chunks must fit.
+MAX_GRID_Y = 65535
+
+
+class BwdPlan(NamedTuple):
+    """How the backward covers [B, S, W]: the sequence in `chunks` chunks
+    of `chunk` steps (the last may be shorter), a thread a channel of a
+    chunk of a batch row; the walk's `ctas` CTAs of CTA_THREADS threads
+    (ceil(W / CTA_THREADS) x B x chunks); `launches` kernel launches a
+    call: the chunk-local walk over chunks 1 .. chunks - 1 first where
+    there is more than one chunk, then the walk from the true carries."""
+    chunk: int
+    chunks: int
+    ctas: int
+    launches: int
+
+
+def bwd_plan(b: int, s: int, w: int, sms: int = SM_COUNT) -> BwdPlan:
+    """The backward's plan for [b, s, w] on a card of `sms` SMs, from these
+    alone: the longest chunk of BWD_CHUNKS whose walk has BWD_FILL CTAs an
+    SM or more (else the shortest), no longer than S, doubled until B x
+    chunks fits a grid."""
+    if min(b, s, w) < 1:
+        raise ValueError(f"rglru backward: shape {(b, s, w)} must be "
+                         "positive")
+    cols = -(-w // CTA_THREADS)
+    for chunk in BWD_CHUNKS:
+        if cols * b * -(-s // chunk) >= BWD_FILL * sms:
+            break
+    chunk = min(chunk, s)
+    while b * -(-s // chunk) > MAX_GRID_Y:
+        chunk *= 2
+    chunks = -(-s // chunk)
+    return BwdPlan(chunk, chunks, cols * b * chunks, 1 + (chunks > 1))
 
 
 def _on_cpu(log_a: torch.Tensor, b: torch.Tensor, state: torch.Tensor
@@ -234,10 +279,9 @@ def rglru_gated_backward(dh: torch.Tensor, za: torch.Tensor,
     given dh (fp32 [B, S, W]), from the initial state h0 (left as it is)
     and the forward's h: (dza, dzi, dy in the inputs' type, d b_a, d b_i,
     d lru_lambda fp32 [W]).  A CPU tensor takes `rglru_gated_bwd_ref`
-    (which needs no h); a CUDA tensor launches the backward kernel once
-    (a thread a channel of a batch row, B x ceil(W / CTA_THREADS) CTAs;
-    the per-channel sums over B and S in a fixed order: the same bits
-    from run to run) or raises."""
+    (which needs no h); a CUDA tensor launches the backward's kernels as
+    `bwd_plan` says (the per-channel sums over B and S in a fixed order:
+    the same bits from run to run) or raises."""
     global bwd_launches
     inputs = (za, zi, y, b_a, b_i, lru_lambda)
     if za.device.type == "cpu":
@@ -251,22 +295,29 @@ def rglru_gated_backward(dh: torch.Tensor, za: torch.Tensor,
                          f"fp32 [{bsz}, {s}, {w}] on {za.device}, got "
                          f"{h.dtype} {tuple(h.shape)} on {h.device} and "
                          f"{dh.dtype} {tuple(dh.shape)} on {dh.device}")
+    plan = bwd_plan(bsz, s, w, sm_count(za.device))
     grads = [torch.empty((bsz, s, w), dtype=za.dtype, device=za.device)
              for _ in range(3)]
     sums = [torch.empty((w,), dtype=torch.float32, device=za.device)
             for _ in range(3)]
-    part = torch.empty((3, bsz, w), dtype=torch.float32, device=za.device)
+    # Each (row, chunk)'s three sums (fp64) and the chunk-local walk's
+    # carry and product of a: 8.4 MB at recurrentgemma-9b's training shape.
+    part = torch.empty((3, bsz * plan.chunks, w), dtype=torch.float64,
+                       device=za.device)
+    carry = torch.empty((2, bsz * plan.chunks, w), dtype=torch.float32,
+                        device=za.device)
     strides = za.stride()
     err = _build.load("rglru", "rglru_gated_bwd_launch")(
-        *(t.data_ptr() for t in (*inputs, h0, h, dh, *grads, part)),
+        *(t.data_ptr() for t in (*inputs, h0, h, dh, *grads, part, carry)),
         _build.tickets(za.device, -(-w // CTA_THREADS)).data_ptr(),
         *(t.data_ptr() for t in sums), _build.dtype_code(za), bsz, s, w,
-        strides[0], strides[1], _build.stream())
+        plan.chunk, strides[0], strides[1], _build.stream())
     _build.check("rglru_gated backward", err)
-    bwd_launches += 1
+    bwd_launches += plan.launches
     return (*grads, *sums)
 
 
-__all__ = ["LANES", "ScanPlan", "launch_plan", "rglru", "rglru_assoc_ref",
-           "rglru_gated", "rglru_gated_backward", "rglru_gated_bwd_ref",
-           "rglru_gates_ref", "rglru_scan_ref", "rglru_step_ref"]
+__all__ = ["BwdPlan", "LANES", "ScanPlan", "bwd_plan", "launch_plan",
+           "rglru", "rglru_assoc_ref", "rglru_gated", "rglru_gated_backward",
+           "rglru_gated_bwd_ref", "rglru_gates_ref", "rglru_scan_ref",
+           "rglru_step_ref"]

@@ -19,12 +19,14 @@ a constant of the backward (it must not require grad) and the final state
 is not differentiated.  Where autograd records, a CUDA call goes through
 `_WKV6Fn`, which keeps a copy of the initial state and whose backward is
 the backward kernel (`wkv6_backward`: `wkv6_bwd_launch` in the same
-source, one launch a call, counted in `bwd_launches`; the plain version
-`wkv6_bwd_ref`, autograd of `wkv6_chunked_ref`).  Serving's tensors
-require no grad and launch the forward alone, as before."""
+source, the chunked form on tensor cores in chunks of BWD_CHUNK with the
+plan `bwd_plan` picks, one launch a call, counted in `bwd_launches`; the
+plain version `wkv6_bwd_ref`, autograd of `wkv6_chunked_ref`).  Serving's
+tensors require no grad and launch the forward alone, as before."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -77,11 +79,53 @@ def chunk_plan(b: int, h: int, n: int, itemsize: int,
     return ChunkPlan("cp.async" if copies else "loads", b * h, 32 * warps)
 
 
-def bwd_threads(n: int) -> int:
-    """Threads of a CTA of the backward kernel (one CTA a (b, h)): a
-    thread a row of the N x N state, and a whole warp at least (N 16 gives
-    a row two lanes)."""
-    return max(n, 32)
+#: Positions a chunk of the backward kernel (the last padded with zeros):
+#: the kernel takes no chunk, whatever the forward's was.
+BWD_CHUNK = 16
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel covers [B, S, H, N]: `ctas` CTAs of
+    `threads` threads, one a (b, h), a warp 16 keys; each walks `chunks`
+    chunks of BWD_CHUNK positions forward and then backward; `staging` as
+    ChunkPlan's (r, k, v, logw and dy)."""
+    staging: str
+    ctas: int
+    threads: int
+    chunks: int
+
+
+def bwd_plan(b: int, s: int, h: int, n: int, itemsize: int,
+             strides: Tuple[int, ...], aligned: bool) -> BwdPlan:
+    """The backward kernel's plan for r/k/v of `itemsize` bytes with
+    element `strides` (batch, seq, head, channel) shared by logw, from
+    these alone.  `aligned`: the base addresses of r, k, v, logw and dy
+    are multiples of 16 bytes.  Raises ValueError for a head dim the
+    kernel is not built for or an empty shape."""
+    if n not in HEAD_DIMS:
+        raise ValueError(f"wkv6 backward: head dim N={n} not in {HEAD_DIMS}")
+    if min(b, s, h) < 1:
+        raise ValueError(f"wkv6 backward: shape {(b, s, h, n)} must be "
+                         "positive")
+    ev = COPY_BYTES // itemsize
+    copies = aligned and all(st % ev == 0 for st in strides[:3])
+    return BwdPlan("cp.async" if copies else "loads", b * h, 2 * n,
+                   -(-s // BWD_CHUNK))
+
+
+def bwd_ctas_an_sm(dtype: torch.dtype, n: int, staging: str) -> int:
+    """CTAs of the built backward kernel for r/k/v of `dtype`, head dim
+    `n` and `staging` that one SM of the current CUDA device holds at
+    once (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`: its registers,
+    shared memory and launch bound)."""
+    if n not in HEAD_DIMS:
+        raise ValueError(f"wkv6 backward: head dim N={n} not in {HEAD_DIMS}")
+    ctas = ctypes.c_int(0)
+    err = _build.load("wkv6", "wkv6_bwd_occupancy")(
+        _build.dtype_code(torch.empty(0, dtype=dtype)), n,
+        int(staging == "cp.async"), ctypes.addressof(ctas))
+    _build.check("wkv6 backward occupancy", err)
+    return ctas.value
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -198,10 +242,10 @@ def wkv6_backward(dy: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
     """Gradients of `wkv6(r, k, v, logw, bonus, state)`'s y given dy (fp32,
     y's shape), from the initial state `state` (left as it is): (dr, dk, dv
     in r's dtype, dlogw fp32 [B, S, H, N], dbonus fp32 [H, N]).  A CPU
-    tensor takes `wkv6_bwd_ref` (chunked at `chunk`; the kernel walks the
-    steps and takes no chunk); a CUDA tensor launches the backward kernel
-    once (dbonus summed over the batch in a fixed order: the same bits
-    from run to run) or raises."""
+    tensor takes `wkv6_bwd_ref` (chunked at `chunk`; the kernel takes no
+    chunk: its own are BWD_CHUNK positions); a CUDA tensor launches the
+    backward kernel once, as `bwd_plan` says (dbonus summed over the batch
+    in a fixed order: the same bits from run to run), or raises."""
     global bwd_launches
     if r.device.type == "cpu":
         return wkv6_bwd_ref(dy, r, k, v, logw, bonus, state,
@@ -220,11 +264,15 @@ def wkv6_backward(dy: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
     dbonus = torch.empty((h, n), dtype=torch.float32, device=r.device)
     part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
     strides = r.stride()
+    plan = bwd_plan(b, s, h, n, r.element_size(), strides,
+                    all(t.data_ptr() % COPY_BYTES == 0
+                        for t in (r, k, v, logw, dy)))
     err = _build.load("wkv6", "wkv6_bwd_launch")(
         *(t.data_ptr() for t in (r, k, v, logw, bonus, state, dy, dr, dk, dv,
                                  dlogw, dbonus, part)),
         _build.tickets(r.device, h).data_ptr(), _build.dtype_code(r), b, s,
-        h, n, strides[0], strides[1], strides[2], _build.stream())
+        h, n, strides[0], strides[1], strides[2],
+        int(plan.staging == "cp.async"), _build.stream())
     _build.check("wkv6 backward", err)
     bwd_launches += 1
     return dr, dk, dv, dlogw, dbonus

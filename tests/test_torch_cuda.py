@@ -1174,14 +1174,19 @@ def test_grouped_gemm_backward_matches_plain(rnd, dtype):
 def test_wkv6_backward_kernel_matches_plain(rnd, dtype):
     """The WKV6 backward kernel (dr, dk, dv, dlogw, dbonus) against
     autograd of the chunked plain version from a nonzero initial state, at
-    every head dim, S not a multiple of the forward's chunk (the backward
-    walks the steps), strided inputs and rwkv6-3b's heads, as |err| <=
-    tol (1 + |ref|); one launch a call, the same bits twice; and autograd
-    through `wkv6` (the forward and backward kernels) gives the same."""
+    every head dim, S not a multiple of the kernel's chunk of 16 (one past
+    one, 17), S 1, strided inputs (16-byte aligned, staged by cp.async, and
+    a width of 66, by plain loads), rwkv6-3b's heads and a 2048-step walk
+    (dlogw's fp64 suffix sums over 128 chunks), as |err| <= tol (1 +
+    |ref|); one launch a call, the same bits twice; and autograd through
+    `wkv6` (the forward and backward kernels) gives the same."""
     dt = getattr(torch, dtype)
     tol = SUM_TOL[dtype]
     cases = ((2, 37, 3, 64, 72, 1), (3, 16, 5, 16, None, 8),
-             (1, 50, 2, 32, 40, 5), (2, 96, 40, 64, None, 32))
+             (1, 50, 2, 32, 40, 5), (2, 96, 40, 64, None, 32),
+             (2, 1, 3, 64, None, 1), (2, 17, 3, 32, None, 1),
+             (1, 20, 2, 64, 66, 4),
+             (1, 2048, 4, 64, None, 32))
     for b, s, h, n, width, chunk in cases:
         r, k, v, logw, u, st = _wkv_inputs(rnd, b, s, h, n, dt, width=width)
         dy = rnd((b, s, h, n), torch.float32)
@@ -1213,29 +1218,52 @@ def test_wkv6_backward_kernel_matches_plain(rnd, dtype):
 
 
 @pytest.mark.requires_cuda
+def test_wkv6_backward_kernel_fills_the_card():
+    """The built backward kernel's occupancy (registers, shared memory and
+    launch bound, as the card reports it): at rwkv6-3b's training shape in
+    bf16 every one of the 320 CTAs is resident at once, three an SM on
+    the H100; every head dim and staging of both types launches."""
+    if not torch.cuda.is_available():
+        pytest.skip(CUDA_MISSING_REASON)
+    plan = wk_ops.bwd_plan(8, 512, 40, 64, 2, (512 * 40 * 64, 40 * 64, 64,
+                                               1), True)
+    per_sm = wk_ops.bwd_ctas_an_sm(torch.bfloat16, 64, plan.staging)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert per_sm * sms >= plan.ctas
+    for dt in (torch.float32, torch.bfloat16):
+        for n in wk_ops.HEAD_DIMS:
+            for staging in ("cp.async", "loads"):
+                assert wk_ops.bwd_ctas_an_sm(dt, n, staging) >= 1
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", list(SUM_TOL))
 def test_rglru_backward_kernel_matches_plain(rnd, dtype):
-    """The gated RG-LRU backward kernel (dza, dzi, dy and the per-channel
+    """The gated RG-LRU backward kernels (dza, dzi, dy and the per-channel
     sums) against autograd of `rglru_gates_ref` and the scan from a nonzero
-    initial state, at recurrentgemma-9b's width (16-byte accesses), a
-    ragged W of strided views (scalar accesses and the tail), one step and
-    one batch row, as |err| <= tol (1 + |ref|); one launch a call, the same
-    bits twice; and autograd through `rglru_gated` gives the same."""
+    initial state, at recurrentgemma-9b's width, a ragged W of strided
+    views (the tail), one step, one batch row, and S one past a multiple of
+    `bwd_plan`'s chunk (8 and, at the training batch, 64), as |err| <= tol
+    (1 + |ref|); the plan's launches a call (two where S spans more than a
+    chunk), the same bits twice; and autograd through `rglru_gated` gives
+    the same."""
     dt = getattr(torch, dtype)
     tol = SUM_TOL[dtype]
     for b, s, w, width in ((3, 37, 4096, None), (3, 21, 203, 235),
-                           (2, 1, 64, None), (1, 70, 1030, None)):
+                           (2, 1, 64, None), (1, 70, 1030, None),
+                           (2, 65, 4096, None), (8, 513, 4096, None)):
         za, zi, y, b_a, b_i, lam, h0 = _gated_inputs(rnd, b, s, w, dt,
                                                      width)
         inputs = (za, zi, y, b_a, b_i, lam)
         h, _ = rg_ops.rglru_gated(*inputs, h0.clone())
         dh = rnd((b, s, w), torch.float32)
         want = rg_ops.rglru_gated_bwd_ref(dh, *inputs, h0)
+        plan = rg_ops.bwd_plan(b, s, w, rg_ops.sm_count(za.device))
         before = rg_ops.bwd_launches
         got = rg_ops.rglru_gated_backward(dh, *inputs, h0, h)
         again = rg_ops.rglru_gated_backward(dh, *inputs, h0, h)
         torch.cuda.synchronize()
-        assert rg_ops.bwd_launches == before + 2
+        assert rg_ops.bwd_launches == before + 2 * plan.launches
         for name, g, ref, g2 in zip(("dza", "dzi", "dy", "b_a", "b_i",
                                      "lambda"), got, want, again):
             assert g.dtype == ref.dtype and g.shape == ref.shape, name
@@ -1252,7 +1280,9 @@ def test_rglru_backward_kernel_matches_plain(rnd, dtype):
     dh = rnd((2, 40, 512), torch.float32)
     grads = torch.autograd.grad(h, leaves, dh)
     assert out is state and not out.requires_grad
-    assert (rg_ops.launches, rg_ops.bwd_launches) == (fwd + 1, bwd + 1)
+    assert (rg_ops.launches, rg_ops.bwd_launches) == (
+        fwd + 1, bwd + rg_ops.bwd_plan(2, 40, 512,
+                                       rg_ops.sm_count(za.device)).launches)
     want = rg_ops.rglru_gated_backward(dh, za, zi, y, b_a, b_i, lam, h0,
                                        h.detach())
     for g, w in zip(grads, want):

@@ -187,6 +187,70 @@ def test_wkv6_chunk_plan_refuses(n):
         wk_ops.chunk_plan(2, 3, n, 2, _strides(64, 3, max(n, 1)), True)
 
 
+# --- WKV6 backward -------------------------------------------------------------
+
+WKV6_BWD_PLANS = [
+    # (B, S, H, N, itemsize, strides, aligned)
+    #   -> (staging, CTAs, threads, chunks)
+    ((8, 512, 40, 64, 2, _strides(512, 40, 64), True),
+     ("cp.async", 320, 128, 32)),             # rwkv6-3b's training, bf16
+    ((8, 512, 40, 64, 4, _strides(512, 40, 64), True),
+     ("cp.async", 320, 128, 32)),             # fp32
+    ((2, 37, 3, 64, 2, _strides(37, 3, 72), True),
+     ("cp.async", 6, 128, 3)),                # S one past two chunks, + 5
+    ((1, 1, 3, 32, 4, _strides(1, 3, 32), True),
+     ("cp.async", 3, 64, 1)),                 # S 1
+    ((1, 2048, 4, 16, 2, _strides(2048, 4, 16), True),
+     ("cp.async", 4, 32, 128)),               # N 16: one warp
+    ((1, 20, 2, 64, 2, _strides(20, 2, 66), True),
+     ("loads", 2, 128, 2)),                   # rows of 66 bf16
+    ((1, 20, 2, 64, 2, _strides(20, 2, 64), False),
+     ("loads", 2, 128, 2)),                   # a base off a 16-byte line
+    ((3, 16, 5, 32, 4, _strides(16, 5, 34), True),
+     ("loads", 15, 64, 1)),                   # fp32 rows of 34: 8-byte lines
+    ((3, 16, 5, 32, 4, _strides(16, 5, 36), True),
+     ("cp.async", 15, 64, 1)),                # fp32 rows of 36: 16-byte lines
+]
+
+
+@pytest.mark.parametrize("args,want", WKV6_BWD_PLANS)
+def test_wkv6_bwd_plan(args, want):
+    plan = wk_ops.bwd_plan(*args)
+    assert (plan.staging, plan.ctas, plan.threads, plan.chunks) == want
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 31, 32, 512, 513, 2048])
+def test_wkv6_bwd_plan_covers_the_sequence_once(s):
+    """The chunks of BWD_CHUNK positions cover S exactly once: every
+    position in one chunk, the last chunk holding at least one."""
+    plan = wk_ops.bwd_plan(2, s, 3, 64, 2, _strides(s, 3, 64), True)
+    covered = [t for c in range(plan.chunks)
+               for t in range(c * wk_ops.BWD_CHUNK,
+                              min(s, (c + 1) * wk_ops.BWD_CHUNK))]
+    assert covered == list(range(s))
+    assert (plan.chunks - 1) * wk_ops.BWD_CHUNK < s
+
+
+def test_wkv6_bwd_plan_fills_the_card_at_rwkv6_training():
+    """At rwkv6-3b's training shape the grid is one CTA a (b, h), 320 of
+    4 warps, more than twice the H100's 132 SMs (how many an SM holds at
+    once is the built kernel's occupancy, which the card test pins)."""
+    plan = wk_ops.bwd_plan(8, 512, 40, 64, 2, _strides(512, 40, 64), True)
+    assert plan.ctas == 8 * 40 and plan.threads == 4 * 32
+    assert plan.ctas > 2 * 132
+
+
+@pytest.mark.parametrize("n", [48, 8, 128, 0])
+def test_wkv6_bwd_plan_refuses(n):
+    with pytest.raises(ValueError, match="wkv6 backward"):
+        wk_ops.bwd_plan(2, 16, 3, n, 2, _strides(16, 3, max(n, 1)), True)
+
+
+def test_wkv6_bwd_plan_refuses_an_empty_shape():
+    with pytest.raises(ValueError, match="wkv6 backward"):
+        wk_ops.bwd_plan(2, 0, 3, 64, 2, _strides(1, 3, 64), True)
+
+
 # --- grouped GEMM, bf16 decode variant -----------------------------------------
 
 # (E, C, K, N): olmoe-1b-7b's decode gate/up and down, one expert, ragged N
@@ -333,3 +397,55 @@ def test_rglru_launch_plan(args, want):
 def test_rglru_launch_plan_refuses_an_empty_shape():
     with pytest.raises(ValueError, match="rglru"):
         rg_ops.launch_plan(0, 1, 4096, (4096, 4096), True)
+
+
+# --- RG-LRU backward -----------------------------------------------------------
+
+RGLRU_BWD_PLANS = [
+    # (B, S, W, SMs) -> (chunk, chunks, CTAs, launches)
+    ((8, 512, 4096, 132), (64, 8, 1024, 2)),   # recurrentgemma-9b training
+    ((8, 513, 4096, 132), (64, 9, 1152, 2)),   # one past a chunk multiple
+    ((8, 512, 4096, 300), (32, 16, 2048, 2)),  # a card of 300 SMs
+    ((2, 65, 4096, 132), (8, 9, 288, 2)),      # a short batch: chunks of 8
+    ((3, 37, 4096, 132), (8, 5, 240, 2)),
+    ((2, 1, 64, 132), (1, 1, 2, 1)),           # S 1: one chunk, one launch
+    ((2, 5, 9, 132), (5, 1, 2, 1)),            # S below a chunk
+    ((1, 70, 1030, 132), (8, 9, 45, 2)),       # W 1030: a ragged column
+]
+
+
+@pytest.mark.parametrize("args,want", RGLRU_BWD_PLANS)
+def test_rglru_bwd_plan(args, want):
+    assert tuple(rg_ops.bwd_plan(*args)) == want
+
+
+@pytest.mark.parametrize("b,s,w", [(8, 512, 4096), (8, 513, 4096),
+                                   (2, 65, 4096), (3, 37, 4096), (2, 1, 64),
+                                   (1, 70, 1030), (1, 200000, 8)])
+def test_rglru_bwd_plan_covers_the_sequence_once(b, s, w):
+    """The chunks cover S exactly once, the last holding at least one step;
+    B x chunks fits a grid's rows; CTAs a column of W times B x chunks."""
+    plan = rg_ops.bwd_plan(b, s, w)
+    covered = [t for c in range(plan.chunks)
+               for t in range(c * plan.chunk, min(s, (c + 1) * plan.chunk))]
+    assert covered == list(range(s))
+    assert (plan.chunks - 1) * plan.chunk < s
+    assert b * plan.chunks <= rg_ops.MAX_GRID_Y
+    assert plan.ctas == -(-w // rg_ops.CTA_THREADS) * b * plan.chunks
+    assert plan.launches == 1 + (plan.chunks > 1)
+
+
+def test_rglru_bwd_plan_fills_the_card_at_recurrentgemma_training():
+    """At recurrentgemma-9b's training shape the walk has 1,024 CTAs of 256
+    on 132 SMs, BWD_FILL (4) an SM and more, against the 128 of a thread a
+    channel walking all of S; the chunk-local walk first, then the walk
+    from the carries."""
+    plan = rg_ops.bwd_plan(8, 512, 4096, 132)
+    assert plan.ctas >= rg_ops.BWD_FILL * 132
+    assert plan.ctas == 8 * plan.chunks * 16
+    assert plan.launches == 2
+
+
+def test_rglru_bwd_plan_refuses_an_empty_shape():
+    with pytest.raises(ValueError, match="rglru backward"):
+        rg_ops.bwd_plan(0, 1, 4096)

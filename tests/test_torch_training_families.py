@@ -13,10 +13,13 @@ tests/test_torch_training.py).
   gated RG-LRU (`rglru_gated_bwd_ref`, chained through the gate products)
   against `repro.models.rglru.rglru_scan`.
 - The backward kernels' algorithms, written out in float64 as the CUDA
-  kernels walk the sequence (WKV6: a forward walk for dr and a backward one
-  for dk, dv and dlogw as a difference of two suffix sums; the RG-LRU: one
-  backward walk), against the plain backwards, at S not a multiple of the
-  chunk and a W not a multiple of 4; and the two autograd Functions' plumbing
+  kernels run them (WKV6: the chunked form, a forward sweep of chunks for
+  dr and a backward one for dk, dv and dlogw as a difference of two fp64
+  suffix sums; the RG-LRU: chunk-local walks, their carries, the walks
+  again), against the plain backwards, at S not a multiple of the chunk,
+  below it and of one step, logw at -4 over a whole chunk, and a W not a
+  multiple of 4; the WKV6 kernel's operand split to TF32 for fp32 inputs
+  (rounded to nearest: products unbiased); and the two autograd Functions' plumbing
   (the initial state kept before the forward overwrites it, the final
   state without a gradient) with their launches replaced by the plain
   forwards.
@@ -271,43 +274,87 @@ def test_rglru_plain_backward_matches_jax_vjp():
 # The kernels' algorithms, written out, against the plain backwards
 # ---------------------------------------------------------------------------
 
-def wkv6_bwd_walks(dy, r, k, v, logw, u, s0):
-    """`wkv6_bwd_kernel`'s two walks in float64: forward with the state
-    for dr^s = S_{t-1} dy_t, backward with G_t for dk^s = G_t v_t and
-    dv^s = G_t^T k_t, and dlogw_t = sum_{i>t} r_i dr^s_i - sum_{j>=t}
-    k_j dk^s_j, as suffix sums."""
-    r, k, v, logw, u, s0, dy = (t.to(F64) for t in (r, k, v, logw, u, s0,
-                                                     dy))
-    w = logw.exp()
+def wkv6_bwd_chunked(dy, r, k, v, logw, u, s0, dtype=F64):
+    """`wkv6_bwd_kernel`'s chunked form in `dtype` (float64 unless
+    asked): chunks of BWD_CHUNK positions, the last padded with zeros; the
+    decays formed about the chunk's middle (cum at position C / 2 - 1); a
+    forward sweep with the state for dr^s = e^ce (dy S_c^T) + e^(ce - mid)
+    (B (k e^(mid - cum))), B_ij = dy_i . v_j (j < i), parking r dr^s; a
+    backward one with G at the chunk's end for dk^s and dv^s; and dlogw_t =
+    sum_{i>t} r_i dr^s_i - sum_{j>=t} k_j dk^s_j as fp64 suffix sums taken a
+    chunk at a time, each chunk in two halves (the kernel's two threads of
+    a key), the later half's sums first."""
+    c = wk_ops.BWD_CHUNK
+    s = r.shape[1]
+    pad = -s % c
+    r, k, v, logw, dy = (torch.nn.functional.pad(t.to(dtype),
+                                                 (0, 0, 0, 0, 0, pad))
+                         for t in (r, k, v, logw, dy))
+    u, s0 = u.to(dtype), s0.to(dtype)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool), diagonal=-1)
     vdy, ruk = (v * dy).sum(-1, keepdim=True), (r * u * k).sum(-1,
                                                               keepdim=True)
+
+    def chunk_of(ci):
+        sl = slice(ci * c, (ci + 1) * c)
+        rc, kc, vc, dyc = r[:, sl], k[:, sl], v[:, sl], dy[:, sl]
+        cum = logw[:, sl].cumsum(1)
+        ce = cum - logw[:, sl]
+        mid, tot = cum[:, c // 2 - 1:c // 2], cum[:, -1:]
+        kn, rn = kc * (mid - cum).exp(), rc * (ce - mid).exp()
+        bm = torch.einsum("bihm,bjhm->bhij", dyc, vc) * mask
+        return sl, rc, kc, vc, dyc, cum, ce, mid, tot, kn, rn, bm
+
     dr, dk, dv, dlogw, parked = (torch.empty_like(r) for _ in range(5))
     state = s0.clone()
-    for t in range(r.shape[1]):
-        drs = torch.einsum("bhnm,bhm->bhn", state, dy[:, t])
-        dr[:, t] = drs + u * k[:, t] * vdy[:, t]
-        parked[:, t] = r[:, t] * drs
-        state = w[:, t, ..., None] * state + torch.einsum(
-            "bhn,bhm->bhnm", k[:, t], v[:, t])
+    for ci in range(r.shape[1] // c):
+        sl, rc, kc, vc, dyc, cum, ce, mid, tot, kn, rn, bm = chunk_of(ci)
+        drs = ce.exp() * torch.einsum("bhnm,bihm->bihn", state, dyc) \
+            + (ce - mid).exp() * torch.einsum("bhij,bjhn->bihn", bm, kn)
+        dr[:, sl] = drs + u * kc * vdy[:, sl]
+        parked[:, sl] = rc * drs
+        state = tot.exp()[:, 0, ..., None] * state + torch.einsum(
+            "bjhn,bjhm->bhnm", kn * (tot - mid).exp(), vc)
     grad = torch.zeros_like(s0)
-    suf_r = suf_k = torch.zeros_like(r[:, 0])
-    for t in reversed(range(r.shape[1])):
-        dks = torch.einsum("bhnm,bhm->bhn", grad, v[:, t])
-        dk[:, t] = dks + u * r[:, t] * vdy[:, t]
-        dv[:, t] = torch.einsum("bhnm,bhn->bhm", grad, k[:, t]) \
-            + ruk[:, t] * dy[:, t]
-        suf_k = suf_k + k[:, t] * dks
-        dlogw[:, t] = suf_r - suf_k
-        suf_r = suf_r + parked[:, t]
-        grad = w[:, t, ..., None] * grad + torch.einsum(
-            "bhn,bhm->bhnm", r[:, t], dy[:, t])
+    suf_r = suf_k = torch.zeros_like(r[:, 0], dtype=F64)
+    parts = 2
+    for ci in reversed(range(r.shape[1] // c)):
+        sl, rc, kc, vc, dyc, cum, ce, mid, tot, kn, rn, bm = chunk_of(ci)
+        am = torch.einsum("bihn,bjhn->bhij", rn, kn) * mask
+        dks = (tot - cum).exp() * torch.einsum("bhnm,bjhm->bjhn", grad, vc) \
+            + (mid - cum).exp() * torch.einsum("bhij,bihn->bjhn", bm, rn)
+        dk[:, sl] = dks + u * rc * vdy[:, sl]
+        dv[:, sl] = torch.einsum("bjhn,bhnm->bjhm", kn * (tot - mid).exp(),
+                                 grad) \
+            + torch.einsum("bhij,bihm->bjhm", am, dyc) + ruk[:, sl] * dyc
+        p, q = parked[:, sl].to(F64), (kc * dks).to(F64)
+        seg = c // parts
+        p_q = [p[:, x * seg:(x + 1) * seg].sum(1) for x in range(parts)]
+        q_q = [q[:, x * seg:(x + 1) * seg].sum(1) for x in range(parts)]
+        for x in range(parts):
+            sr, sk = suf_r, suf_k
+            for y in reversed(range(x + 1, parts)):
+                sr, sk = sr + p_q[y], sk + q_q[y]
+            for j in reversed(range(x * seg, (x + 1) * seg)):
+                sk = sk + q[:, j]
+                dlogw[:, ci * c + j] = (sr - sk).to(dtype)
+                sr = sr + p[:, j]
+        for y in reversed(range(parts)):
+            suf_r, suf_k = suf_r + p_q[y], suf_k + q_q[y]
+        grad = tot.exp()[:, 0, ..., None] * grad + torch.einsum(
+            "bihn,bihm->bhnm", rn * mid.exp(), dyc)
     du = (r * k * vdy).sum((0, 1))
-    return dr, dk, dv, dlogw, du
+    return dr[:, :s], dk[:, :s], dv[:, :s], dlogw[:, :s], du
 
 
-def rglru_bwd_walk(dh, za, zi, y, ba, bi, lam, h0):
-    """`rglru_gated_bwd_kernel`'s backward walk in float64: the gates made
-    again, g_t = dh_t + a_{t+1} g_{t+1}, the clamp passing no gradient."""
+def rglru_bwd_chunked(dh, za, zi, y, ba, bi, lam, h0, chunk):
+    """`rglru_gated_bwd_local` and `rglru_gated_bwd_kernel` in float64:
+    the gates made again; the sequence in chunks of `chunk` steps, each of
+    chunks 1 .. n - 1 walked backward from a zero carry for the carry it
+    passes on (L = a_t0 g^_t0) and its product of a (P); each chunk's true
+    carry C = L' + P' C from the last chunk down; each chunk walked again
+    from it, g_t = dh_t + a_{t+1} g_{t+1}, the clamp passing no gradient;
+    the sums taken a (row, chunk) at a time, then added in that order."""
     za, zi, y, ba, bi, lam, h0, dh = (t.to(F64) for t in (za, zi, y, ba,
                                                            bi, lam, h0, dh))
     r, i = torch.sigmoid(za + ba), torch.sigmoid(zi + bi)
@@ -320,45 +367,143 @@ def rglru_bwd_walk(dh, za, zi, y, ba, bi, lam, h0):
         hc = a[:, t] * hc + s[:, t] * i[:, t] * y[:, t]
         h[:, t] = hc
     h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+    steps = za.shape[1]
+    bounds = [(t0, min(steps, t0 + chunk)) for t0 in range(0, steps, chunk)]
+    records = {}
+    for ci, (t0, t1) in enumerate(bounds[1:], start=1):
+        carry, prod = torch.zeros_like(h0), torch.ones_like(h0)
+        for t in reversed(range(t0, t1)):
+            carry = a[:, t] * (dh[:, t] + carry)
+            prod = prod * a[:, t]
+        records[ci] = (carry, prod)
     dza, dzi, dy = (torch.empty_like(za) for _ in range(3))
-    carry = torch.zeros_like(h0)
-    sum_l = torch.zeros_like(lam)
-    for t in reversed(range(za.shape[1])):
-        g = dh[:, t] + carry
-        dla = g * h_prev[:, t] * a[:, t] - torch.where(
-            q[:, t] > 1e-9, g * i[:, t] * y[:, t] * a[:, t] ** 2 / s[:, t],
-            0.0)
-        dza[:, t] = dla * neg_c * r[:, t] * (1 - r[:, t])
-        dzi[:, t] = g * s[:, t] * y[:, t] * i[:, t] * (1 - i[:, t])
-        dy[:, t] = g * s[:, t] * i[:, t]
-        sum_l = sum_l + (dla * r[:, t]).sum(0)
-        carry = a[:, t] * g
-    return (dza, dzi, dy, dza.sum((0, 1)), dzi.sum((0, 1)),
-            sum_l * -8.0 * torch.sigmoid(lam))
+    parts = []
+    for ci, (t0, t1) in enumerate(bounds):
+        carry = torch.zeros_like(h0)
+        for cc in reversed(range(ci + 1, len(bounds))):
+            carry = records[cc][0] + records[cc][1] * carry
+        sums = [torch.zeros_like(h0) for _ in range(3)]
+        for t in reversed(range(t0, t1)):
+            g = dh[:, t] + carry
+            dla = g * h_prev[:, t] * a[:, t] - torch.where(
+                q[:, t] > 1e-9, g * i[:, t] * y[:, t] * a[:, t] ** 2
+                / s[:, t], 0.0)
+            dza[:, t] = dla * neg_c * r[:, t] * (1 - r[:, t])
+            dzi[:, t] = g * s[:, t] * y[:, t] * i[:, t] * (1 - i[:, t])
+            dy[:, t] = g * s[:, t] * i[:, t]
+            sums = [sums[0] + dza[:, t], sums[1] + dzi[:, t],
+                    sums[2] + dla * r[:, t]]
+            carry = a[:, t] * g
+        parts.append(sums)
+    # The slots in (row, chunk) order.
+    total = [sum(parts[ci][k][row] for row in range(za.shape[0])
+                 for ci in range(len(bounds))) for k in range(3)]
+    return (dza, dzi, dy, total[0], total[1],
+            total[2] * -8.0 * torch.sigmoid(lam))
+
+
+def _hold_wkv6_chunked(s, chunk, logw_floor_at=None):
+    """The chunked form against `wkv6_bwd_ref` (chunked at `chunk`) at 1e-5
+    in float64; with `logw_floor_at`, logw at its floor (-4) over the whole
+    chunk of BWD_CHUNK positions starting there (the overflow trap: e^(4 x
+    16) outside the renormalisation), held in fp32 too, as the kernel
+    computes, every factor finite."""
+    arrays = _wkv6_inputs(2, s, 3, 16, seed=s)
+    if logw_floor_at is not None:
+        arrays[3][:, logw_floor_at:logw_floor_at + wk_ops.BWD_CHUNK] = -4.0
+    r, k, v, logw, u, s0, dy = (_t(a) for a in arrays)
+    want = wk_ops.wkv6_bwd_ref(dy, r, k, v, logw, u, s0, chunk)
+    dtypes = (F64,) if logw_floor_at is None else (F64, torch.float32)
+    for dtype in dtypes:
+        got = wkv6_bwd_chunked(dy, r, k, v, logw, u, s0, dtype=dtype)
+        tol = 1e-5 if dtype == F64 else 1e-4
+        for name, g, w in zip(("dr", "dk", "dv", "dlogw", "dbonus"), got,
+                              want):
+            assert bool(torch.isfinite(g).all()), (name, dtype)
+            np.testing.assert_allclose(g.float().numpy(), w.numpy(),
+                                       err_msg=f"{name} {dtype}", rtol=tol,
+                                       atol=tol)
 
 
 @pytest.mark.parametrize("s,chunk", [(24, 8), (20, 5), (7, 7)])
 def test_wkv6_kernel_walks_match_the_plain_backward(s, chunk):
-    inputs = [_t(a) for a in _wkv6_inputs(2, s, 3, 16, seed=s)]
-    r, k, v, logw, u, s0, dy = inputs
-    want = wk_ops.wkv6_bwd_ref(dy, r, k, v, logw, u, s0, chunk)
-    got = wkv6_bwd_walks(dy, r, k, v, logw, u, s0)
-    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "dbonus"), got, want):
-        np.testing.assert_allclose(g.float().numpy(), w.numpy(),
+    """S not a multiple of the kernel's chunk (16), one whole chunk and a
+    ragged one."""
+    _hold_wkv6_chunked(s, chunk)
+
+
+@pytest.mark.parametrize("s,chunk,floor_at", [
+    (5, 5, None),           # S below a chunk
+    (1, 1, None),           # one position
+    (48, 16, 16),           # logw -4 over the second chunk
+])
+def test_wkv6_kernel_chunked_form_short_and_slow(s, chunk, floor_at):
+    _hold_wkv6_chunked(s, chunk, floor_at)
+
+
+def _hold_rglru_chunked(b, s, w, chunk):
+    y, wa, wi, ba, bi, lam, h0, dh = (_t(a) for a in
+                                      _rglru_inputs(b, s, w, seed=s))
+    inputs = (y @ wa, y @ wi, y, ba, bi, lam)
+    want = rg_ops.rglru_gated_bwd_ref(dh, *inputs, h0)
+    got = rglru_bwd_chunked(dh, *inputs, h0, chunk)
+    for name, g, w_ in zip(("dza", "dzi", "dy", "b_a", "b_i", "lambda"),
+                           got, want):
+        np.testing.assert_allclose(g.float().numpy(), w_.numpy(),
                                    err_msg=name, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 13, 10), (3, 1, 8), (1, 40, 7)])
 def test_rglru_kernel_walk_matches_the_plain_backward(b, s, w):
-    y, wa, wi, ba, bi, lam, h0, dh = (_t(a) for a in
-                                      _rglru_inputs(b, s, w, seed=s))
-    inputs = (y @ wa, y @ wi, y, ba, bi, lam)
-    want = rg_ops.rglru_gated_bwd_ref(dh, *inputs, h0)
-    got = rglru_bwd_walk(dh, *inputs, h0)
-    for name, g, w_ in zip(("dza", "dzi", "dy", "b_a", "b_i", "lambda"),
-                           got, want):
-        np.testing.assert_allclose(g.float().numpy(), w_.numpy(),
-                                   err_msg=name, rtol=1e-5, atol=1e-5)
+    """In the chunks `bwd_plan` gives these shapes (8 steps: 2, 1 and 5
+    chunks)."""
+    _hold_rglru_chunked(b, s, w, rg_ops.bwd_plan(b, s, w).chunk)
+
+
+@pytest.mark.parametrize("b,s,w,chunk", [
+    (2, 21, 6, 8),          # S not a multiple of Lc
+    (2, 5, 9, 8),           # S below Lc
+    (1, 33, 5, 4),          # nine chunks, the last of one step
+])
+def test_rglru_kernel_chunked_walks_ragged(b, s, w, chunk):
+    _hold_rglru_chunked(b, s, w, chunk)
+
+
+def _tf32_parts(x, nearest):
+    """fp32 x = big + small as the WKV6 backward kernel gives them to the
+    tensor core, in float64: fp32 inputs' `split_rn` (nearest: both parts
+    rounded to the nearest TF32 value, the magnitude's half up) or
+    tf32.cuh's `split` (big truncated, small read with its low 13 bits
+    dropped)."""
+    add = 0x1000 if nearest else 0
+    big = ((x.view(torch.int32) + add) & -0x2000).view(torch.float32)
+    small = ((x - big).view(torch.int32) + add) & -0x2000
+    return big.double(), small.view(torch.float32).double()
+
+
+def test_wkv6_bwd_operand_split_rounds_to_nearest():
+    """Why the WKV6 backward rounds fp32 inputs' operands to nearest: the
+    four TF32 products big*big + big*small + small*big + small*small of
+    fp32 a and b (exact on the tensor core, emulated in float64) err by at
+    most 2^-22 of a b and lean neither way, where truncated parts err by
+    up to ~2^-20 and lean toward zero by ~2.5 x 2^-24 on average, a bias
+    dlogw's suffix sums over the sequence add up."""
+    gen = torch.Generator().manual_seed(0)
+    n = 1 << 18
+    a = torch.randn(n, generator=gen) * torch.exp(
+        2 * torch.randn(n, generator=gen))
+    b = torch.randn(n, generator=gen)
+    exact = a.double() * b.double()
+    lean = {}
+    for nearest in (True, False):
+        (ba, sa), (bb, sb) = _tf32_parts(a, nearest), _tf32_parts(b, nearest)
+        err = (ba * bb + ba * sb + sa * bb + sa * sb) - exact
+        rel = err * exact.sign() / exact.abs()     # > 0: away from zero
+        lean[nearest] = float(rel.mean()) * 2 ** 24
+        if nearest:
+            assert float(rel.abs().max()) <= 2.0 ** -22
+    assert abs(lean[True]) < 0.05
+    assert lean[False] < -1.0
 
 
 def test_wkv6_function_keeps_the_initial_state(monkeypatch):
