@@ -274,6 +274,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      a nonzero initial state, each held to autograd of its plain version
      to SUM_TOLERANCE, the same bits on two calls, timed beside the plain
      backward (no library call computes either).
+ 13. the dry run and data parallelism (`launch/dryrun.py`,
+     `launch/mesh.py`, `distributed/*`): (a) `train_step_memory`, the
+     port's train step run on the meta device, against the peak each of
+     phase 12's runs measured (`torch.cuda.max_memory_allocated` above
+     what was held before): llama3.2-1b, rwkv6-3b under remat "none" and
+     "full", recurrentgemma-9b at 6 blocks, llama3.2-1b's remat "full"
+     and "dots", olmoe-1b-7b at 4 layers and seamless, each within
+     ESTIMATE_TOL (3 %) of its run's; (b) two data-parallel training
+     steps of llama3.2-1b at B 8 x S 512 through `run_training` under a
+     NCCL process group of world size 1 (a file store in a temporary
+     directory: the machine has one card), the losses and every parameter
+     equal bit for bit to the same steps without a process group, the
+     launches exact, with the step times and the gradient all-reduce's
+     payload and ring-model bytes on the wire.
 
 The line before the last holds the card's name and power limit, the one
 before it the kernels' JSON record (`launches` summed over the paths'
@@ -3437,6 +3451,9 @@ GRAD_NORM_TOL, GRAD_ELEM_TOL, NARROW_LOSS_TOL = 1e-3, 5e-3, 1e-4
 ZERO_GRAD_REL = 1e-6
 #: 12(b)-(c): resumed and remat losses against the uninterrupted run's.
 TRAIN_LOSS_TOL = 1e-3
+#: Each counted training run's peak memory in GB above what was held
+#: before it, by its label (`counted_train_run`; phase 13(a) reads them).
+TRAIN_PEAKS = {}
 #: The counters a training step moves, by name.
 TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "moe_gemm",
                   "moe_gemm_dx", "moe_gemm_dw", "moe_gemm_transpose",
@@ -3621,6 +3638,7 @@ def counted_train_run(torch, ops, label, smi, run, tokens):
     counts = train_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9 - held
     wall = time.monotonic() - t0
+    TRAIN_PEAKS[label] = peak
     if out is None:
         say(f"train {label}: the injected failure raised, wall_s="
             f"{wall:.2f} peak_gb={peak:.2f} counts={counts}")
@@ -3956,6 +3974,133 @@ def train_encdec_on_card(torch, rt, ops, smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the dry run's estimate and data parallelism
+# ---------------------------------------------------------------------------
+
+#: 13(a): phase 12's runs the dry run's training-step estimate must land
+#: within ESTIMATE_TOL of: (the run's label, arch, config overrides,
+#: batch, tokens, speech frames).
+ESTIMATE_RUNS = (
+    ("llama3.2-1b", "llama3.2-1b", {}, TRAIN_BATCH, TRAIN_SEQ, 0),
+    ("llama3.2-1b remat=full", "llama3.2-1b", {"remat": "full"},
+     TRAIN_BATCH, TRAIN_SEQ, 0),
+    ("llama3.2-1b remat=dots", "llama3.2-1b", {"remat": "dots"},
+     TRAIN_BATCH, TRAIN_SEQ, 0),
+    ("olmoe-1b-7b", "olmoe-1b-7b", {"n_layers": OLMOE_TRAIN_LAYERS},
+     TRAIN_BATCH, TRAIN_SEQ, 0),
+    ("rwkv6-3b remat=none", "rwkv6-3b", {"remat": "none"}, TRAIN_BATCH,
+     TRAIN_SEQ, 0),
+    ("rwkv6-3b remat=full", "rwkv6-3b", {"remat": "full"}, TRAIN_BATCH,
+     TRAIN_SEQ, 0),
+    ("recurrentgemma-9b", "recurrentgemma-9b",
+     {"n_layers": RGLRU_TRAIN_LAYERS}, TRAIN_BATCH, TRAIN_SEQ, 0),
+    ("seamless-m4t-large-v2", "seamless-m4t-large-v2", {},
+     ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["tokens"], ENCDEC_TRAIN["frames"]))
+#: The sound estimates land 0.9898-1.0000 of their peaks (rwkv6-3b under
+#: remat "full" the lowest); an estimate without the gradients would miss
+#: llama3.2-1b's by 6.9 %.  The limit lies between the two.
+ESTIMATE_TOL = 0.03
+#: 13(b): the steps of each run (the first also opens NCCL's communicator).
+DP_STEPS = 2
+
+
+def estimates_vs_peaks(rt, smi):
+    """13(a): each ESTIMATE_RUNS run's training-step estimate (nothing
+    allocated: the step runs on the meta device) beside the peak phase 12
+    measured; fails where one misses by more than ESTIMATE_TOL."""
+    from repro_torch.launch.dryrun import train_step_memory
+    for label, arch, over, batch, seq, frames in ESTIMATE_RUNS:
+        cfg = rt.dataclasses.replace(rt.configs.get(arch), **over)
+        t0 = time.monotonic()
+        est = train_step_memory(cfg, batch, seq, frames=frames)
+        took = time.monotonic() - t0
+        peak = TRAIN_PEAKS[label]
+        ratio = est["peak"] / 1e9 / peak
+        say(f"dryrun estimate {label} ({smi}): B {batch} x S {seq}"
+            f"{f' x {frames} frames' if frames else ''} estimate_gb="
+            f"{est['peak'] / 1e9:.3f} measured_peak_gb={peak:.3f} "
+            f"ratio={ratio:.4f} (weights {est['weights'] / 1e9:.3f}, grads "
+            f"{est['grads'] / 1e9:.3f}, adamw {est['adamw'] / 1e9:.3f}, "
+            f"kept for the backward {est['activations'] / 1e9:.3f} GB) "
+            f"estimate_s={took:.2f}")
+        if not abs(ratio - 1.0) <= ESTIMATE_TOL:
+            fail(f"dryrun estimate {label}: {est['peak'] / 1e9:.3f} GB is "
+                 f"{ratio:.4f} of the measured {peak:.3f} GB (tol "
+                 f"{ESTIMATE_TOL:g})")
+
+
+def data_parallel_on_card(torch, rt, ops, smi, totals):
+    """13(b): DP_STEPS steps of llama3.2-1b at B TRAIN_BATCH x S TRAIN_SEQ
+    through `run_training` without a process group, then the same steps
+    under a NCCL group of world size 1, each counted: losses and
+    parameters bit for bit, step times, the all-reduce's bytes, and the
+    group's run holding no more memory at its peak than the run without
+    (the all-reduce's fp32 buffer lives inside a step, after the
+    backward's peak)."""
+    import datetime
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import run_training
+    from repro_torch.training.tree import flatten_with_paths
+    llama = rt.configs.get("llama3.2-1b")
+    kw = dict(smoke=False, steps=DP_STEPS, global_batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, device="cuda", log_every=1,
+              return_state=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    plain, counts, plain_peak = counted_train_run(
+        torch, ops, "llama3.2-1b without a process group", smi,
+        lambda: run_training("llama3.2-1b", **kw), tokens)
+    hold_train_launches("llama3.2-1b without a process group", counts, llama,
+                        DP_STEPS, totals)
+    ref = dict(flatten_with_paths(plain.pop("params")))
+    del plain["opt_state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            out, counts, peak = counted_train_run(
+                torch, ops, "llama3.2-1b data-parallel (nccl, world 1)", smi,
+                lambda: run_training("llama3.2-1b", **kw), tokens)
+        finally:
+            dist.destroy_process_group()
+    hold_train_launches("llama3.2-1b data-parallel", counts, llama, DP_STEPS,
+                        totals)
+    params = dict(flatten_with_paths(out.pop("params")))
+    del out["opt_state"]
+    differ = [p for p, t in params.items() if not torch.equal(t, ref[p])]
+    dp = out["data_parallel"]
+    say(f"data parallel llama3.2-1b ({smi}): world {dp['world']} rank "
+        f"{dp['rank']} over nccl, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+        f"{DP_STEPS} steps: step_ms="
+        f"{[round(s * 1e3, 2) for s in out['step_s']]} (without a process "
+        f"group {[round(s * 1e3, 2) for s in plain['step_s']]}; the first "
+        f"opens NCCL's communicator) allreduce a step "
+        f"n={dp['n_collectives']} payload_bytes={dp['payload_bytes']:.0f} "
+        f"wire_bytes_per_device={dp['wire_bytes_per_device']:.0f} (ring "
+        f"model at world {dp['world']}) losses {out['losses']!r} without a "
+        f"process group {plain['losses']!r}; {len(params) - len(differ)} of "
+        f"{len(params)} parameters bit-equal; peak_gb={peak:.3f} (without "
+        f"a process group {plain_peak:.3f})")
+    if out["losses"] != plain["losses"] or differ or params.keys() != \
+            ref.keys():
+        fail(f"data parallel llama3.2-1b: the world-1 step differs from the "
+             f"step without a process group (losses {out['losses']} vs "
+             f"{plain['losses']}; parameters {differ[:4]})")
+    if peak > plain_peak * 1.01:
+        fail(f"data parallel llama3.2-1b: peak {peak:.3f} GB against "
+             f"{plain_peak:.3f} without a process group")
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     t_start = time.monotonic()
@@ -4103,9 +4248,15 @@ def main() -> None:
     for name, n in train_recurrent_on_card(torch, rt, ops, smi).items():
         train_totals[name] += n
     train_encdec_on_card(torch, rt, ops, smi)
+    say(f"phase 12 seconds={time.monotonic() - t12:.1f}")
+
+    # Phase 13, the dry run against phase 12's peaks, then data parallelism
+    t13 = time.monotonic()
+    estimates_vs_peaks(rt, smi)
+    data_parallel_on_card(torch, rt, ops, smi, train_totals)
     for name in ("rmsnorm", "moe_gemm", "wkv6", "rglru"):
         totals[name] += train_totals[name]
-    say(f"phase 12 seconds={time.monotonic() - t12:.1f}")
+    say(f"phase 13 seconds={time.monotonic() - t13:.1f}")
 
     say(f"chip_smoke total_s={time.monotonic() - t_start:.1f}")
     record = []

@@ -30,5 +30,8 @@ SM_COUNT = 132
 @functools.cache
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (read once a device; the
-    read makes no host sync)."""
+    read makes no host sync); SM_COUNT for another device (the meta
+    device of a dry run)."""
+    if torch.device(device).type != "cuda":
+        return SM_COUNT
     return torch.cuda.get_device_properties(device).multi_processor_count

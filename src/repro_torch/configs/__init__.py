@@ -1,12 +1,30 @@
 """Architecture configs of the port: every config of `repro.configs`.
 
 `get(name)` returns the full config; `get_smoke(name)` the reduced
-same-family config for CPU tests and the default engine environment."""
+same-family config for CPU tests and the default engine environment;
+`input_specs(name, shape)` the dry run's inputs (`specs.py`).  `ARCHS`
+lists the ten assigned architectures, `EDGE_MODELS` the paper's two edge
+models, by module name as the reference lists them."""
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
+
+ARCHS: List[str] = [
+    "rwkv6_3b",
+    "phi3_vision_4p2b",
+    "smollm_360m",
+    "qwen2_1p5b",
+    "gemma2_27b",
+    "starcoder2_7b",
+    "seamless_m4t_large_v2",
+    "mixtral_8x22b",
+    "olmoe_1b_7b",
+    "recurrentgemma_9b",
+]
+
+EDGE_MODELS: List[str] = ["llama32_1b", "qwen25_3b"]
 
 ALIASES: Dict[str, str] = {
     "llama3.2-1b": "llama32_1b",
@@ -40,3 +58,8 @@ def get(name: str):
 def get_smoke(name: str):
     """Reduced same-family config for CPU tests."""
     return _module(name).smoke_config()
+
+
+def input_specs(name: str, shape: str):
+    """Meta-tensor stand-ins for the dry run; see each config module."""
+    return _module(name).input_specs(shape)

@@ -6,6 +6,7 @@ final 30), GeGLU, sandwich norms, query scale 1/sqrt(d/h)
 At full width it is 27.23 B parameters, 54.5 GB in bf16: it fits one
 80 GB card with room for the engine's caches."""
 
+from repro_torch.configs import specs
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -30,3 +31,7 @@ def smoke_config() -> TransformerConfig:
         embed_scale=True, post_norms=True,
         sliding_window=8, layer_pattern=("local", "global"),
         tie_embeddings=True)
+
+
+def input_specs(shape: str):
+    return specs.lm_input_specs(config(), shape)

@@ -1,6 +1,7 @@
 """Llama3.2-1B — the paper's primary edge model (Results 1/2).
 16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256 [Meta 2025]."""
 
+from repro_torch.configs import specs
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -17,3 +18,7 @@ def smoke_config() -> TransformerConfig:
         name="llama3.2-1b-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, head_dim=16, d_ff=160, vocab_size=256,
         norm="rmsnorm", mlp_kind="gated", act="silu", tie_embeddings=True)
+
+
+def input_specs(shape: str):
+    return specs.lm_input_specs(config(), shape)

@@ -7,6 +7,7 @@ embeddings [B, 576, d_model] are prepended to the token stream through
 `prefix_embeddings`.  The engine serves the backbone on tokens alone, as
 the reference's does."""
 
+from repro_torch.configs import specs
 from repro_torch.models.frontends import VisionStub
 from repro_torch.models.transformer import TransformerConfig
 
@@ -28,3 +29,8 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=4, head_dim=16, d_ff=160, vocab_size=256,
         norm="rmsnorm", mlp_kind="gated", act="silu", tie_embeddings=True,
         num_prefix_embeddings=8)
+
+
+def input_specs(shape: str):
+    # Patch embeddings ride along for train/prefill shapes.
+    return specs.lm_input_specs(config(), shape, prefix_len=576)

@@ -1,6 +1,7 @@
 """Qwen2.5-3B — the paper's second edge model (Results 1/2).
 36L d_model=2048 16H (GQA kv=2) d_ff=11008 vocab=151936 [arXiv:2412.15115]."""
 
+from repro_torch.configs import specs
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -18,3 +19,7 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=2, head_dim=16, d_ff=160, vocab_size=256,
         norm="rmsnorm", mlp_kind="gated", act="silu", qkv_bias=True,
         tie_embeddings=True)
+
+
+def input_specs(shape: str):
+    return specs.lm_input_specs(config(), shape)

@@ -1,6 +1,7 @@
 """qwen2-1.5b [dense]: 28L d_model=1536 12H (GQA kv=2) d_ff=8960
 vocab=151936 — GQA, QKV bias [arXiv:2407.10671; hf]."""
 
+from repro_torch.configs import specs
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -18,3 +19,7 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=2, head_dim=16, d_ff=160, vocab_size=256,
         norm="rmsnorm", mlp_kind="gated", act="silu", qkv_bias=True,
         tie_embeddings=True)
+
+
+def input_specs(shape: str):
+    return specs.lm_input_specs(config(), shape)

@@ -3,6 +3,7 @@
 RG-LRU + local attention, pattern (rec, rec, attn) [arXiv:2402.19427;
 unverified]."""
 
+from repro_torch.configs import specs
 from repro_torch.models.rglru import RGLRUConfig
 
 
@@ -22,3 +23,7 @@ def smoke_config() -> RGLRUConfig:
         lru_width=64, sliding_window=8,
         pattern=("recurrent", "recurrent", "attention"),
         tie_embeddings=True)
+
+
+def input_specs(shape: str):
+    return specs.lm_input_specs(config(), shape)

@@ -2,6 +2,7 @@
 — Finch, data-dependent decay [arXiv:2404.05892; hf].  head_dim=64
 (40 heads)."""
 
+from repro_torch.configs import specs
 from repro_torch.models.rwkv6 import RWKV6Config
 
 
@@ -17,3 +18,7 @@ def smoke_config() -> RWKV6Config:
         name="rwkv6-smoke", n_layers=2, d_model=64, head_dim=16,
         d_ff=128, vocab_size=256, lora_rank_decay=8, lora_rank_mix=4,
         chunk=8, tie_embeddings=False)
+
+
+def input_specs(shape: str):
+    return specs.lm_input_specs(config(), shape)

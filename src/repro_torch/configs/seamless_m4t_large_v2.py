@@ -4,6 +4,7 @@ d_ff=8192 vocab=256206 [arXiv:2308.11596; hf].
 The audio frontend is a stub (`models/frontends.AudioStub`): precomputed
 speech frame embeddings [B, T <= 4096, d_model] feed the encoder."""
 
+from repro_torch.configs import specs
 from repro_torch.models.encdec import EncDecConfig
 
 
@@ -21,3 +22,7 @@ def smoke_config() -> EncDecConfig:
         d_model=64, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
         vocab_size=256, act="relu", max_source_len=32, max_target_len=64,
         tie_embeddings=True)
+
+
+def input_specs(shape: str):
+    return specs.encdec_input_specs(config(), shape)

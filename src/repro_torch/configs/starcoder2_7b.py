@@ -2,6 +2,7 @@
 vocab=49152 — GQA, RoPE, non-gated GELU MLP with bias, LayerNorm
 [arXiv:2402.19173; hf]."""
 
+from repro_torch.configs import specs
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -19,3 +20,7 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=2, head_dim=16, d_ff=256, vocab_size=256,
         norm="layernorm", mlp_kind="dense", act="gelu_tanh", use_bias=True,
         tie_embeddings=True)
+
+
+def input_specs(shape: str):
+    return specs.lm_input_specs(config(), shape)

@@ -14,6 +14,7 @@ the package, and this machine has no `nvcc`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -166,6 +167,30 @@ def dtype_code(t: torch.Tensor) -> int:
     except KeyError:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}"
                         ) from None
+
+
+#: Dry runs in progress (`dry_run`).
+_DRY_RUNS = 0
+
+
+@contextlib.contextmanager
+def dry_run():
+    """Inside, a meta tensor takes its kernel's route as a CUDA tensor does
+    (`launch/dryrun.py` runs the model so), allocating its outputs and
+    workspaces on the meta device and launching and counting nothing.
+    Outside, the wrappers refuse a meta tensor."""
+    global _DRY_RUNS
+    _DRY_RUNS += 1
+    try:
+        yield
+    finally:
+        _DRY_RUNS -= 1
+
+
+def on_card(device: torch.device) -> bool:
+    """Whether a wrapper takes its kernel's route on `device`: CUDA, or the
+    meta device inside `dry_run`."""
+    return device.type == "cuda" or (device.type == "meta" and _DRY_RUNS > 0)
 
 
 def records(*tensors: torch.Tensor) -> bool:

@@ -7,7 +7,8 @@ Kernel: `repro_torch/csrc/moe_gemm.cu`, which replaces the Pallas
 decode variant (C <= 8) is a persistent grid over work units of (expert,
 columns) that `decode_plan` lays out from the shapes and the card's SM
 count.  A CPU tensor takes the plain version in `ref.py` (differentiable by
-autograd); a CUDA tensor launches the kernel or raises.
+autograd); a CUDA tensor launches the kernel or raises; a meta tensor
+takes the CUDA route without a launch (inside `_build.dry_run`).
 
 Where autograd records (grad enabled and x or w requiring grad) the CUDA
 call goes through the custom op `repro_torch::grouped_gemm`, so that
@@ -121,7 +122,7 @@ def bwd_plan(e: int, m: int, nn: int, sms: int = SM_COUNT) -> BwdPlan:
 def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
     """Both on one CUDA device, of one dtype, 3-D, contiguous and 16-byte
     aligned (the kernels' TMA maps and vector loads)."""
-    if a.device.type != "cuda" or b.device != a.device:
+    if not _build.on_card(a.device) or b.device != a.device:
         raise ValueError(f"{name}: operands on {a.device} and {b.device}; "
                          "both must be on one CUDA device")
     if b.dtype != a.dtype:
@@ -147,6 +148,8 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          "of 8 (16-byte vectors)")
     code = _build.dtype_code(x)
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    if x.is_meta:
+        return out
     if x.dtype == torch.bfloat16 and c <= DECODE_ROWS:
         plan = decode_plan(e, c, k, n, sm_count(x.device))
         err = _build.load("moe_gemm", "moe_gemm_decode_launch")(
@@ -163,7 +166,7 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global launches
     out = _product(x, w)
-    launches += 1
+    launches += not out.is_meta
     return out
 
 
@@ -184,6 +187,12 @@ def _backward(ctx, dy):
     return dx, dw
 
 
+@_grouped_gemm_op.register_fake
+def _grouped_gemm_shape(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The op's output on the meta device (a dry run): no launch."""
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
 _grouped_gemm_op.register_autograd(_backward, setup_context=_setup_context)
 
 
@@ -194,6 +203,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x and w."""
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w)
+    _check_pair("grouped_gemm", x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _grouped_gemm_op(x, w)
     return _forward(x, w)
@@ -204,11 +214,14 @@ def transpose_pad(src: torch.Tensor, rows: int) -> torch.Tensor:
     i < R and zeros for R <= i < rows, by the transposed-copy kernel."""
     global transpose_launches
     e, r, c = src.shape
-    if src.device.type != "cuda" or not src.is_contiguous() or rows < r:
+    if not _build.on_card(src.device) or not src.is_contiguous() \
+            or rows < r:
         raise ValueError(f"transpose_pad: need a contiguous CUDA [E, R, C] "
                          f"and rows >= R, got {tuple(src.shape)} on "
                          f"{src.device}, rows {rows}")
     out = torch.empty((e, c, rows), dtype=src.dtype, device=src.device)
+    if src.is_meta:
+        return out
     err = _build.load("moe_gemm", "moe_transpose_launch")(
         src.data_ptr(), out.data_ptr(), _build.dtype_code(src), e, r, c, rows,
         _build.stream())
@@ -232,6 +245,8 @@ def _bwd_product(which: str, a: torch.Tensor, b: torch.Tensor, e: int,
     else:
         out = torch.empty((e, k, n), dtype=a.dtype, device=a.device)
         ctas = bwd_plan(e, k, n, sms).ctas
+    if a.is_meta:
+        return out
     err = _build.load("moe_gemm", f"moe_gemm_{which}_launch")(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), e, c, k, n, ctas,
         _build.stream())
@@ -259,7 +274,7 @@ def grouped_gemm_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         out = _product(dy.contiguous(), transpose_pad(w.contiguous(),
                                                       w.shape[1]))
-    dx_launches += 1
+    dx_launches += not out.is_meta
     return out
 
 
@@ -287,5 +302,5 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         if c8 != c:
             dy = torch.nn.functional.pad(dy, (0, 0, 0, c8 - c))
         out = _product(transpose_pad(x.contiguous(), c8), dy)
-    dw_launches += 1
+    dw_launches += not out.is_meta
     return out

@@ -14,7 +14,9 @@ the decode step (S == 1), with the plan `launch_plan` picks from the
 shapes.  A CPU tensor takes the plain version in `ref.py` (the gates by
 `rglru_gates_ref`, then `rglru_step_ref` when S == 1, else
 `rglru_assoc_ref`, the reference model's form); a CUDA tensor launches
-the kernel or raises.  `launches` counts kernel launches of both entries.
+the kernel or raises; a meta tensor takes the CUDA route without a launch
+(inside `_build.dry_run`).  `launches` counts kernel launches of both
+entries.
 
 Both write the final state into `state` in place and return it, so a
 model's stacked `lru_h` is updated without a copy.
@@ -140,7 +142,8 @@ def _check(name: str, inputs: Sequence[torch.Tensor],
     """Raise on what the kernel cannot take; return (B, S, W, plan)."""
     x = inputs[0]
     tensors = (*inputs, *vectors, state)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+    if not _build.on_card(x.device) \
+            or any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: every tensor must be on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     if x.dim() != 3 or any(t.shape != x.shape for t in inputs) \
@@ -191,6 +194,8 @@ def rglru(log_a: torch.Tensor, b: torch.Tensor, state: torch.Tensor
                              (torch.float32,))
     strides = log_a.stride()
     h = torch.empty((bsz, s, w), dtype=torch.float32, device=log_a.device)
+    if log_a.is_meta:
+        return h, state
     err = _build.load("rglru")(
         log_a.data_ptr(), b.data_ptr(), state.data_ptr(), h.data_ptr(),
         bsz, s, w, strides[0], strides[1], int(plan.vec), _build.stream())
@@ -239,6 +244,8 @@ def _gated_forward(za, zi, y, b_a, b_i, lru_lambda, state, vec
     bsz, s, w = za.shape
     strides = za.stride()
     h = torch.empty((bsz, s, w), dtype=torch.float32, device=za.device)
+    if za.is_meta:
+        return h
     err = _build.load("rglru", "rglru_gated_launch")(
         za.data_ptr(), zi.data_ptr(), y.data_ptr(), b_a.data_ptr(),
         b_i.data_ptr(), lru_lambda.data_ptr(), state.data_ptr(),
@@ -306,6 +313,8 @@ def rglru_gated_backward(dh: torch.Tensor, za: torch.Tensor,
                        device=za.device)
     carry = torch.empty((2, bsz * plan.chunks, w), dtype=torch.float32,
                         device=za.device)
+    if za.is_meta:
+        return (*grads, *sums)
     strides = za.stride()
     err = _build.load("rglru", "rglru_gated_bwd_launch")(
         *(t.data_ptr() for t in (*inputs, h0, h, dh, *grads, part, carry)),

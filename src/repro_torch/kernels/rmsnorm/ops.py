@@ -11,6 +11,8 @@ scale requiring grad) the CUDA call goes through `_RMSNormFn`, whose
 backward is the backward kernel (`rmsnorm_backward`, plan `bwd_plan`: one
 pass over the rows in registers and dscale's column sum, in one launch);
 serving's tensors require no grad and launch the forward alone, as before.
+A meta tensor takes the CUDA route without a launch (inside
+`_build.dry_run`).
 `launches` counts forward launches, `bwd_launches` backward launches."""
 
 from __future__ import annotations
@@ -153,7 +155,7 @@ def rows_view(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
-    if x.device.type != "cuda" or scale.device != x.device:
+    if not _build.on_card(x.device) or scale.device != x.device:
         raise ValueError(f"rmsnorm: x on {x.device}, scale on "
                          f"{scale.device}; both must be on one CUDA device")
     d = x.shape[-1]
@@ -171,7 +173,7 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float
     x2 = rows_view(x)
     code = _build.dtype_code(x)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or x.is_meta:
         return out
     plan = launch_plan(d, x.element_size(), x2.stride(0),
                        x2.data_ptr() % VEC_BYTES == 0
@@ -247,6 +249,8 @@ def rmsnorm_backward(dy: torch.Tensor, x: torch.Tensor,
                     aligned, sm_count(x.device))
     part = torch.empty(((plan.ctas + plan.groups) * d,), dtype=torch.float32,
                        device=x.device)
+    if x.is_meta:
+        return dx, dscale
     err = _build.load("rmsnorm", "rmsnorm_bwd_launch")(
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), part.data_ptr(),

@@ -8,7 +8,8 @@ state.  It serves both the chunked prefill (chunk > 1) and the decode step
 (S == 1, chunk 1); the chunked variant's CTAs each own one (b, h) and
 stage their inputs as `chunk_plan` says.  A CPU tensor takes
 the plain version in `ref.py` (`wkv6_step_ref` when S == 1, else
-`wkv6_chunked_ref`); a CUDA tensor launches the kernel or raises.
+`wkv6_chunked_ref`); a CUDA tensor launches the kernel or raises; a meta
+tensor takes the CUDA route without a launch (inside `_build.dry_run`).
 `launches` counts kernel launches.
 
 Both paths write the final state into `state` in place and return it, so a
@@ -166,8 +167,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check(r, k, v, logw, bonus, state) -> None:
     """Raise on what the kernels cannot take."""
     tensors = (r, k, v, logw, bonus, state)
-    if r.device.type != "cuda" or any(t.device != r.device
-                                      for t in tensors):
+    if not _build.on_card(r.device) \
+            or any(t.device != r.device for t in tensors):
         raise ValueError("wkv6: r, k, v, logw, bonus and state must all be "
                          "on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
@@ -206,6 +207,8 @@ def _forward(r, k, v, logw, bonus, state, chunk) -> torch.Tensor:
     plan = chunk_plan(b, h, n, r.element_size(), strides,
                       all(p % COPY_BYTES == 0 for p in ptrs))
     y = torch.empty((b, s, h, n), dtype=torch.float32, device=r.device)
+    if r.is_meta:
+        return y
     err = _build.load("wkv6")(
         *ptrs, bonus.data_ptr(), state.data_ptr(), y.data_ptr(),
         _build.dtype_code(r), b, s, h, n, chunk, strides[0], strides[1],
@@ -263,6 +266,8 @@ def wkv6_backward(dy: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
     dlogw = torch.empty((b, s, h, n), dtype=torch.float32, device=r.device)
     dbonus = torch.empty((h, n), dtype=torch.float32, device=r.device)
     part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    if r.is_meta:
+        return dr, dk, dv, dlogw, dbonus
     strides = r.stride()
     plan = bwd_plan(b, s, h, n, r.element_size(), strides,
                     all(t.data_ptr() % COPY_BYTES == 0

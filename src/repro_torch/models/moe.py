@@ -26,8 +26,9 @@ sums each token's k pairs in a fixed order, so no step uses atomics and
 bf16 results do not vary from run to run.
 
 The reference's `autoshard` constraints are no-ops without a device mesh,
-and the port runs on one device, so they are left out, and with them
-`MoEConfig.shard_mode`.
+and the port runs on one device, so they are left out.  `shard_mode` is
+kept: `distributed/sharding.py` lays the experts out by it, as the
+reference's rules do.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     act: str = "silu"
     router_aux_coef: float = 0.01  # Switch/OLMoE load-balance loss
+    shard_mode: str = "expert"     # "expert" | "ffn" (distributed/sharding)
 
     def capacity(self, n_tokens: int) -> int:
         cap = int(math.ceil(self.capacity_factor * n_tokens * self.top_k

@@ -71,6 +71,10 @@ class ModelBundle:
     def n_params(self) -> int:
         return self.cfg.n_params
 
+    @property
+    def n_active_params(self) -> int:
+        return self.cfg.n_active_params
+
 
 _FAMILY_MODULES = {"transformer": transformer, "rwkv6": rwkv6,
                    "rglru": rglru, "encdec": encdec}

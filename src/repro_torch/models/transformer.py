@@ -347,7 +347,9 @@ def forward(cfg: TransformerConfig, params: Params, tokens: Tensor,
         if layer_aux is not None:
             aux = aux + layer_aux
     if prefix_embeddings is not None:
-        x = x[:, prefix_embeddings.shape[1]:]
+        # Contiguous: the card's RMSNorm reads [B * S, D] rows, which a
+        # slice of the sequence of [B, P + S, D] does not lay out.
+        x = x[:, prefix_embeddings.shape[1]:].contiguous()
     return _head(cfg, params, x), aux
 
 

@@ -6,8 +6,9 @@ Elastic re-shard: when hosts fail, training resumes on a smaller mesh —
 checkpoints are topology-free (plain arrays), so resuming is: build the
 survivor mesh, re-derive the partitioning and reshard.
 `shrink_data_axis` computes the largest viable survivor mesh.  The port
-trains on one card: its mesh and dry-run tooling is ROADMAP.md Queue 1
-item 9c.
+trains data-parallel over a process group's ranks (`launch/mesh.py`,
+`launch/train.py`); tensor parallelism over a "model" axis has no
+counterpart on a one-card machine (ROADMAP.md Queue 1 item 9c).
 
 Straggler watchdog: per-step wall-time EWMA with z-score flagging; in a real
 deployment the flagged host is cordoned and the elastic path above kicks in

@@ -1329,3 +1329,36 @@ def test_gradient_reaches_every_leaf_on_the_card(card, arch):
                                  g_cpu):
         gc = gc.cpu()
         assert (gc - gh).norm() <= 1e-3 * gh.norm(), path
+
+
+@pytest.mark.requires_cuda
+def test_prefix_embeddings_train_on_the_card(card):
+    """phi-3-vision-smoke in fp32 with 8 prefix embeddings, the loss and
+    every leaf's gradient card against CPU, as above: the token positions
+    the head reads after the prefix is cut off reach the RMSNorm kernel as
+    whole rows."""
+    from repro_torch.training import tree
+    cfg = dataclasses.replace(torch_configs.get_smoke("phi-3-vision-4.2b"),
+                              dtype=torch.float32)
+    bundle = bundle_for(cfg)
+    params = bundle.init_params(0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (2, 17), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "prefix_embeddings": torch.randn(
+                 (2, cfg.num_prefix_embeddings, cfg.d_model), generator=gen)}
+
+    def grads(device):
+        p = tree.tree_map(
+            lambda t: t.to(device, copy=True).requires_grad_(True), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss = bundle.loss_fn(p, b)
+        return loss, torch.autograd.grad(loss, tree.leaves(p))
+    before = backward_launch_counts()["rmsnorm_bwd"]
+    loss_c, g_card = grads("cuda")
+    loss_h, g_cpu = grads("cpu")
+    assert backward_launch_counts()["rmsnorm_bwd"] > before
+    assert abs(loss_c.item() - loss_h.item()) <= 1e-4 * abs(loss_h.item())
+    for (path, _), gc, gh in zip(tree.flatten_with_paths(params), g_card,
+                                 g_cpu):
+        assert (gc.cpu() - gh).norm() <= 1e-3 * gh.norm(), path
